@@ -1,0 +1,80 @@
+"""Where the time of one rife_tpu_torch step goes on the card.
+
+Runs the plain 2x bf16 step of the v4.6-architecture graph (in-repo
+reconstruction, synthetic weights) at 1080p, B=8 by default, under
+``torch.profiler`` and prints: the step's wall time, the summed device time
+of its kernels, the device's idle share over the profiled window, and the
+kernels ranked by device time.  Needs one NVIDIA GPU.
+
+Run: python tools/torch_step_profile.py [B] [STEPS] [--table PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("batch", type=int, nargs="?", default=8)
+    ap.add_argument("steps", type=int, nargs="?", default=3)
+    ap.add_argument("--table", type=Path, help="write the full table here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.models.v46_arch import LABEL, write_flownet_param
+
+    model_dir = write_flownet_param(ROOT / "rife_tpu_torch" / "_build" / "models")
+    sess = RIFE(str(model_dir), device="cuda")
+    b, h, w = args.batch, 1080, 1920
+    rng = np.random.default_rng(0)
+    f0 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), np.uint8)).cuda()
+    f1 = torch.roll(f0, shifts=(3, -5), dims=(1, 2))
+    ts = np.full(b, 0.5, np.float32)
+    for _ in range(2):
+        sess.process_batch_device(f0, f1, ts)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            sess.process_batch_device(f0, f1, ts)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    events = prof.key_averages()
+    dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in dev)
+    step_ms = wall / args.steps * 1e3
+    print(f"{LABEL}, bf16 {h}x{w} B={b}, {torch.cuda.get_device_name(0)}")
+    print(f"step wall {step_ms:.3f} ms (profiled), device kernel time "
+          f"{busy_us / 1e3 / args.steps:.3f} ms/step, idle share "
+          f"{1 - busy_us / 1e6 / wall:.3f}")
+    dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    for e in dev[:25]:
+        print(f"{e.self_device_time_total / 1e3 / args.steps:9.3f} ms/step "
+              f"{100 * e.self_device_time_total / busy_us:5.1f}%  "
+              f"x{e.count // args.steps:<4d} {e.key[:90]}")
+    if args.table:
+        args.table.parent.mkdir(parents=True, exist_ok=True)
+        args.table.write_text(events.table(sort_by="self_cuda_time_total",
+                                           row_limit=200))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
