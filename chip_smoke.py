@@ -2,21 +2,32 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives ``rife_tpu_torch`` on one card, through the entry points a user calls
-(``RIFE(...).process_batch`` / ``process_batch_device``), on the
-v4.6-architecture graph (in-repo reconstruction, synthetic weights) at its
-full width:
+(``RIFE(...).process_batch`` / ``process_batch_device``), on two paths at
+full width: the v4.6-architecture graph and the v2.3-architecture graphs
+(in-repo reconstructions, synthetic weights):
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
-2. builds the CUDA warp kernels from ``rife_tpu_torch/csrc``;
-3. holds each kernel against its plain PyTorch twin on the card at the main
-   path's shapes (B=2 at 1088x1920, plus an unaligned shape) in bf16 and f32,
-   and times both with CUDA events;
-4. runs the slice: (a) f32 on the card (TF32 off) against the same session on
-   the CPU at 256x448, u8 max |d| <= 1 and >= 99.9% exact; (b) bf16 1080p at
-   B=8 on smooth synthetic frames, with every launch counter set to 0 just
-   before and read just after, which must show 1 ds4-pair, 2 pair and
-   1 render launch per step;
-5. prints the kernels' JSON line, the nvidia-smi line and, last, the
+2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
+   in parallel);
+3. holds each kernel against its plain PyTorch twin on the card, in bf16 and
+   f32, and times both with CUDA events: the three u8 pair warps at B=2,
+   1088x1920 (plus an unaligned shape); ``warp_feat`` at the v2.3
+   contextnet's four feature warps of a 1080p B=8 step (C=32..256, the batch
+   of 16 both frames make), an odd C and an unaligned size, raw flow and
+   absolute positions; ``warp_u8`` at the fusionnet's frame warps; and
+   ``conv3x3`` at every site the gates route at 1080p B=8 (deconv phase
+   sites included; beside it cuDNN's bf16 conv on the same call).  Bars: warps f32 max |d| <= 2e-6, conv3x3 f32 max |d| <=
+   1e-5 of the largest output; bf16 <= 1 ulp and >= 99% exact;
+4. runs the v4.6 slice: (a) f32 on the card (TF32 off) against the same
+   session on the CPU at 256x448, u8 max |d| <= 1 and >= 99.9% exact; (b)
+   bf16 1080p B=8 on smooth synthetic frames, every launch counter set to 0
+   just before and read just after: 1 ds4-pair, 2 pair, 1 render per step;
+5. runs the v2.3 slice: (a) f32 on the card against the CPU session at
+   544x960 (a size at which the gates route conv sites to ``conv3x3``), same
+   bar, launches equal to ``plan.kernel_sites``; (b) bf16 1080p B=8, PSNR of
+   its first two frames against f32 on the CPU, frames/s, and launch counts
+   per step equal to ``plan.kernel_sites`` (printed beside them);
+6. prints the kernels' JSON line, the nvidia-smi line and, last, the
    ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
@@ -39,16 +50,30 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MAIN_SHAPE = (2, 1088, 1920)
 ODD_SHAPE = (2, 52, 196)
-SLICE_CHECK = (1, 256, 448)
+V46_CHECK = (1, 256, 448)
+V23_CHECK = (2, 544, 960)
 BENCH = (8, 1080, 1920)
 BENCH_STEPS = 5
-PAIR_SRC = "rife_tpu/ops/warp_pallas.py"
+V23_PSNR_ITEMS = 2
+# v2.3 contextnet feature warps of a 1080p B=8 step: (C, H, W) at batch 16
+FEAT_SHAPES = [(32, 272, 480), (64, 136, 240), (128, 68, 120), (256, 34, 60)]
+FEAT_EXTRA = [(2, 7, 68, 120), (2, 32, 33, 61)]  # odd C, unaligned size
+WARP_SRC = "rife_tpu/ops/warp_pallas.py"
+CONV_SRC = "rife_tpu/ops/conv_planar.py"
 KERNELS = {
-    # name: (wrapper, twin, replaced TPU kernel, launches per step)
-    "warp_ds4_pair": ("warp_ds4_pair", "warp_ds4_pair_ref",
-                      f"{PAIR_SRC}:1662", 1),
-    "warp_pair": ("warp_pair", "warp_pair_ref", f"{PAIR_SRC}:1274", 2),
-    "warp_render": ("warp_render", "warp_render_ref", f"{PAIR_SRC}:1304", 1),
+    # name: (source, replaced TPU kernel, further TPU kernels it covers)
+    "warp_ds4_pair": ("warp.cu", f"{WARP_SRC}:1662", [f"{WARP_SRC}:1610"]),
+    "warp_pair": ("warp.cu", f"{WARP_SRC}:1274", []),
+    "warp_render": ("warp.cu", f"{WARP_SRC}:1304", []),
+    "warp_feat": ("warp.cu", f"{WARP_SRC}:146", [f"{WARP_SRC}:515"]),
+    "warp_u8": ("warp.cu", f"{WARP_SRC}:2321", []),
+    "conv3x3": ("conv.cu", f"{CONV_SRC}:309",
+                [f"{CONV_SRC}:485", f"{CONV_SRC}:97", f"{CONV_SRC}:190"]),
+}
+PAIR_KERNELS = {  # name: (wrapper, twin)
+    "warp_ds4_pair": ("warp_ds4_pair", "warp_ds4_pair_ref"),
+    "warp_pair": ("warp_pair", "warp_pair_ref"),
+    "warp_render": ("warp_render", "warp_render_ref"),
 }
 
 
@@ -89,6 +114,15 @@ def smooth_frames(rng, b, h, w):
             np.ascontiguousarray(np.clip(f1, 0, 255).astype(np.uint8)))
 
 
+def smooth_flow(rng, b, h, w, dtype, device, shift=25.0):
+    """(B,2,H,W) smooth flow plus noise whose top rows leave the frame."""
+    f = smooth_field(rng, b, h, w, 2) * 12
+    f += rng.normal(size=f.shape).astype(np.float32) * 0.7
+    f[:, : h // 10] += shift
+    return torch.from_numpy(f).permute(0, 3, 1, 2).to(
+        device=device, dtype=dtype).contiguous()
+
+
 def kernel_inputs(rng, shape, dtype, device):
     """NCHW images (u8/255 as preprocess makes them), flows that leave the
     frame, and a mask, in ``dtype`` on ``device``."""
@@ -98,13 +132,8 @@ def kernel_inputs(rng, shape, dtype, device):
     f0, f1 = smooth_frames(rng, b, h, w)
     imgs = [frame.preprocess(torch.from_numpy(f).to(device), h, w, dtype)
             for f in (f0, f1)]
-    flows = []
-    for k in range(2):
-        f = smooth_field(rng, b, h, w, 2) * 12
-        f += rng.normal(size=f.shape).astype(np.float32) * 0.7
-        f[:, : h // 10] += 25.0 * (1 - 2 * k)
-        flows.append(torch.from_numpy(f).permute(0, 3, 1, 2).to(
-            device=device, dtype=dtype).contiguous())
+    flows = [smooth_flow(rng, b, h, w, dtype, device, 25.0 * (1 - 2 * k))
+             for k in range(2)]
     mask = torch.sigmoid(torch.from_numpy(smooth_field(rng, b, h, w, 1)[..., 0])
                          * 3).to(device=device, dtype=dtype)
     return imgs[0], flows[0], imgs[1], flows[1], mask
@@ -115,15 +144,17 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(2.0, e - 7)
 
 
-def compare(got, want, dtype) -> float:
-    """Tolerance of tests/test_torch_warp.py; returns max |d|."""
+def compare(got, want, dtype, f32_rel=None) -> float:
+    """Tolerances of tests/test_torch_warp.py and tests/test_torch_conv.py;
+    returns max |d|."""
     g, r = got.float(), want.float()
     require(g.shape == r.shape, f"shape {tuple(g.shape)} vs {tuple(r.shape)}")
     require(bool(torch.isfinite(g).all()), "non-finite kernel output")
     diff = (g - r).abs()
     err = float(diff.max())
     if dtype == torch.float32:
-        require(err <= 2e-6, f"f32 max |d| {err} > 2e-6")
+        bound = 2e-6 if f32_rel is None else f32_rel * float(r.abs().max())
+        require(err <= bound, f"f32 max |d| {err} > {bound}")
     else:
         require(bool((diff <= bf16_ulp(r)).all()), f"bf16 |d| {err} > 1 ulp")
         exact = float((diff == 0).float().mean())
@@ -144,37 +175,130 @@ def time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(device, rng):
-    """Each kernel against its twin on the card; times at MAIN_SHAPE, bf16."""
+def check_pair(report, name, kfn, tfn, args, dtype, label, timed,
+               f32_rel=None, iters=20, tally=True):
+    """Run a kernel and its twin on the same inputs, compare, and (timed)
+    print both times and (tally) add them to the kernel's report."""
+    got, want = kfn(*args), tfn(*args)
+    torch.cuda.synchronize()
+    if isinstance(got, torch.Tensor):
+        got, want = (got,), (want,)
+    err = max(compare(g, r, dtype, f32_rel) for g, r in zip(got, want))
+    rep = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
+                                   "plain_ms": 0.0})
+    rep["max_abs_err"] = max(rep["max_abs_err"], err)
+    line = f"kernel {name} {str(dtype)[6:]} {label}: max|d| vs twin {err:.3g}"
+    if timed:
+        ms = time_ms(lambda: kfn(*args), iters)
+        plain = time_ms(lambda: tfn(*args), max(2, iters // 4))
+        if tally:
+            rep["ms"] += ms
+            rep["plain_ms"] += plain
+        line += (f", kernel {ms:.4f} ms, plain twin {plain:.4f} ms "
+                 f"(CUDA events)")
+    print(line, flush=True)
+
+
+def phase_pair_kernels(device, rng, report):
+    """The u8 pair warps (K5-K7); times at MAIN_SHAPE, bf16."""
     from rife_tpu_torch.ops import warp as W
 
-    report = {n: {"max_abs_err": 0.0} for n in KERNELS}
     for dtype in (torch.bfloat16, torch.float32):
         for shape in (MAIN_SHAPE, ODD_SHAPE):
             ia, fa, ib, fb, m = kernel_inputs(rng, shape, dtype, device)
             args = {"warp_pair": (ia, fa, ib, fb),
                     "warp_ds4_pair": (ia, fa, ib, fb),
                     "warp_render": (ia, fa, ib, fb, m)}
-            for name, (wrap, twin, _, _) in KERNELS.items():
-                kfn, tfn = getattr(W, wrap), getattr(W, twin)
-                got, want = kfn(*args[name]), tfn(*args[name])
-                torch.cuda.synchronize()
-                if isinstance(got, torch.Tensor):
-                    got, want = (got,), (want,)
-                err = max(compare(g, r, dtype) for g, r in zip(got, want))
-                rep = report[name]
-                rep["max_abs_err"] = max(rep["max_abs_err"], err)
-                line = (f"kernel {name} {str(dtype)[6:]} B,H,W={shape}: "
-                        f"max|d| vs twin {err:.3g}")
-                if shape == MAIN_SHAPE and dtype == torch.bfloat16:
-                    rep["ms"] = time_ms(lambda: kfn(*args[name]))
-                    rep["plain_ms"] = time_ms(lambda: tfn(*args[name]), 5)
-                    line += (f", kernel {rep['ms']:.4f} ms, plain twin "
-                             f"{rep['plain_ms']:.4f} ms (CUDA events)")
-                print(line, flush=True)
+            for name, (wrap, twin) in PAIR_KERNELS.items():
+                check_pair(report, name, getattr(W, wrap), getattr(W, twin),
+                           args[name], dtype, f"B,H,W={shape}",
+                           shape == MAIN_SHAPE and dtype == torch.bfloat16)
             del ia, fa, ib, fb, m, args
     torch.cuda.empty_cache()
-    return report
+
+
+def phase_single_warp(device, rng, report):
+    """``warp_feat`` (K1/K2) at the contextnet's feature-warp shapes of one
+    1080p B=8 step (timed in f32 and bf16; the bf16 sum, one step's, goes to
+    the report), plus an odd C,
+    an unaligned size and the absolute-position form; ``warp_u8`` (K4) at
+    the fusionnet's two 1088x1920 frame warps of that step (timed: one)."""
+    from rife_tpu_torch.ops import warp as W
+
+    b2 = 2 * BENCH[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for c, h, w in FEAT_SHAPES:
+            img = torch.randn(b2, c, h, w, device=device).mul_(2).to(dtype)
+            flow = smooth_flow(rng, b2, h, w, dtype, device, shift=6.0)
+            # f32 (K1's form) is timed too, the report keeps bf16 (K2's)
+            check_pair(report, "warp_feat", W.warp_feat, W.warp_feat_ref,
+                       (img, flow), dtype, f"B,C,H,W={(b2, c, h, w)}", True,
+                       tally=timed)
+        for b, c, h, w in FEAT_EXTRA:
+            img = torch.randn(b, c, h, w, device=device).to(dtype)
+            flow = smooth_flow(rng, b, h, w, dtype, device)
+            check_pair(report, "warp_feat", W.warp_feat, W.warp_feat_ref,
+                       (img, flow), dtype, f"B,C,H,W={(b, c, h, w)}", False)
+            pos = W.ds4_positions(flow)
+            check_pair(report, "warp_feat",
+                       lambda i, p: W.warp_feat(i, p, abs_pos=True),
+                       lambda i, p: W.warp_feat_ref(i, p, abs_pos=True),
+                       (img, pos), dtype, f"abs_pos B,C,Ho,Wo={(b, c, *pos.shape[2:])}",
+                       False)
+        b, h, w = BENCH[0], 1088, 1920
+        ia, fa, _, _, _ = kernel_inputs(rng, (b, h, w), dtype, device)
+        check_pair(report, "warp_u8", W.warp_u8, W.warp_u8_ref, (ia, fa),
+                   dtype, f"B,H,W={(b, h, w)}", timed)
+        ia, fa, _, _, _ = kernel_inputs(rng, ODD_SHAPE, dtype, device)
+        check_pair(report, "warp_u8",
+                   lambda i, f: W.warp_u8(i, W.ds4_positions(f), abs_pos=True),
+                   lambda i, f: W.warp_u8_ref(i, W.ds4_positions(f),
+                                              abs_pos=True),
+                   (ia, fa), dtype, f"abs_pos B,H,W={ODD_SHAPE}", False)
+        del ia, fa
+    torch.cuda.empty_cache()
+
+
+def phase_conv(device, rng, report, sites):
+    """``conv3x3`` at each site of one 1080p B=8 step, random weights, every
+    activation as the site has it; bf16 times summed over the sites are one
+    step's conv3x3 time."""
+    from rife_tpu_torch.ops import conv as CV
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for factor, parts, cout, stride, act, h, w in sites:
+            b = factor * BENCH[0]
+            xs = [torch.randn(b, c, h, w, device=device).to(dtype)
+                  for c in parts]
+            cin = sum(parts)
+            weight = (torch.randn(cout, cin, 3, 3, device=device)
+                      * (1.0 / (3.0 * cin ** 0.5))).to(dtype)
+            bias = torch.randn(cout, device=device) * 0.1
+            slope = torch.rand(cout, device=device) * 0.3
+            args = (xs, weight, bias, slope)
+            check_pair(report, "conv3x3",
+                       lambda x, wt, bi, sl: CV.conv3x3(
+                           x, wt, bi, sl, stride=stride, act=act),
+                       lambda x, wt, bi, sl: CV.conv3x3_ref(
+                           x, wt, bi, sl, stride=stride, act=act),
+                       args, dtype, f"B={b} parts={parts} cout={cout} "
+                       f"s{stride} act{act} {h}x{w}",
+                       dtype == torch.bfloat16, f32_rel=1e-5, iters=10)
+            if dtype == torch.bfloat16:
+                # what a tensor-core conv reaches on the same call: cuDNN in
+                # bf16 (conv only; the XLA form's bias and activation would
+                # follow as separate kernels)
+                x = torch.cat(xs, dim=1)
+                ms = time_ms(lambda: torch.nn.functional.conv2d(
+                    x, weight, None, stride=stride, padding=1), 10)
+                rep = report["conv3x3"]
+                rep["cudnn_bf16_ms"] = rep.get("cudnn_bf16_ms", 0.0) + ms
+                print(f"  cuDNN bf16 conv on the same inputs: {ms:.4f} ms",
+                      flush=True)
+                del x
+            del xs, weight, args
+    torch.cuda.empty_cache()
 
 
 def assert_u8_close(got, want, what):
@@ -185,57 +309,131 @@ def assert_u8_close(got, want, what):
     require(int(diff.max()) <= 1 and exact >= 0.999, f"{what}: tolerance")
 
 
-def phase_slice(device, model_dir, rng, card):
-    from rife_tpu_torch import RIFE
-    from rife_tpu_torch.models.v46_arch import LABEL
+def psnr(got, want) -> float:
+    mse = float(np.mean((got.astype(np.float64) - want) ** 2))
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+def reset_counts():
+    from rife_tpu_torch.ops import conv as CV
     from rife_tpu_torch.ops import warp as W
 
-    # (a) f32 on the card (TF32 is off) against the CPU session
-    b, h, w = SLICE_CHECK
-    f0, f1 = smooth_frames(rng, b, h, w)
-    ts = np.full(b, 0.5, np.float32)
-    want = RIFE(str(model_dir), device="cpu").process_batch(f0, f1, ts)
-    got = RIFE(str(model_dir), device=device,
-               dtype=torch.float32).process_batch(f0, f1, ts)
-    assert_u8_close(got, want, f"slice f32 cuda vs cpu {h}x{w}")
-    sess = RIFE(str(model_dir), device=device)
-    require(sess.dtype == torch.bfloat16, "bf16 is the CUDA default")
-    low = sess.process_batch(f0, f1, ts)
-    mse = float(np.mean((low.astype(np.float64) - want) ** 2))
-    psnr = 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
-    print(f"slice bf16 cuda vs f32 cpu {h}x{w}: PSNR {psnr:.2f} dB", flush=True)
-    require(psnr >= 30.0, f"bf16 slice PSNR {psnr:.2f} dB < 30 dB")
+    W.reset_launches()
+    CV.reset_launches()
 
-    # (b) bf16 1080p B=8 through the main path, launches counted
+
+def read_counts():
+    from rife_tpu_torch.ops import conv as CV
+    from rife_tpu_torch.ops import warp as W
+
+    return {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
+
+
+def bench(sess, device, label, card):
+    """bf16 1080p B=8 through ``process_batch_device`` on device-resident
+    u8 frames; returns (launches over the counted steps, first frames, the
+    u8 inputs)."""
     b, h, w = BENCH
-    f0, f1 = smooth_frames(rng, b, h, w)
+    f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
     d0 = torch.from_numpy(f0).to(device)
     d1 = torch.from_numpy(f1).to(device)
     ts = np.full(b, 0.5, np.float32)
     out = sess.process_batch_device(d0, d1, ts)  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
-    W.reset_launches()
+    reset_counts()
     t0 = time.perf_counter()
     for _ in range(BENCH_STEPS):
         out = sess.process_batch_device(d0, d1, ts)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(W.LAUNCHES)
-    print(f"launches over {BENCH_STEPS} steps: {launches}", flush=True)
-    for name, (_, _, _, per_step) in KERNELS.items():
-        require(launches[name] == per_step * BENCH_STEPS,
-                f"{name} launched {launches[name]} times, expected "
-                f"{per_step * BENCH_STEPS}")
+    launches = read_counts()
     res = out.cpu().numpy()
     require(res.shape == (b, h, w, 3) and res.dtype == np.uint8,
             f"output {res.shape} {res.dtype}")
     require(float(res.std()) > 1.0, "constant output frame")
     fps = b * BENCH_STEPS / dt
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    print(f"fps: {fps:.3f} frames/s, rife_tpu_torch plain 2x bf16 "
-          f"{h}x{w} B={b} ({BENCH_STEPS} steps, device-resident u8 in/out), "
-          f"{LABEL}; card {card}; peak memory {peak:.2f} GiB", flush=True)
+    print(f"fps: {fps:.3f} frames/s, rife_tpu_torch plain 2x bf16 {h}x{w} "
+          f"B={b} ({BENCH_STEPS} steps, device-resident u8 in/out), {label}; "
+          f"card {card}; peak memory {peak:.2f} GiB", flush=True)
+    return launches, res, (f0, f1)
+
+
+def phase_v46(device, model_dir, rng, card):
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.models.v46_arch import LABEL
+
+    # (a) f32 on the card (TF32 is off) against the CPU session
+    b, h, w = V46_CHECK
+    f0, f1 = smooth_frames(rng, b, h, w)
+    ts = np.full(b, 0.5, np.float32)
+    want = RIFE(str(model_dir), device="cpu").process_batch(f0, f1, ts)
+    got = RIFE(str(model_dir), device=device,
+               dtype=torch.float32).process_batch(f0, f1, ts)
+    assert_u8_close(got, want, f"v4.6 slice f32 cuda vs cpu {h}x{w}")
+    sess = RIFE(str(model_dir), device=device)
+    require(sess.dtype == torch.bfloat16, "bf16 is the CUDA default")
+    p = psnr(sess.process_batch(f0, f1, ts), want)
+    print(f"v4.6 slice bf16 cuda vs f32 cpu {h}x{w}: PSNR {p:.2f} dB",
+          flush=True)
+    require(p >= 30.0, f"bf16 v4.6 slice PSNR {p:.2f} dB < 30 dB")
+
+    # (b) bf16 1080p B=8 through the main path, launches counted
+    launches, _, _ = bench(sess, device, LABEL, card)
+    per_step = kernel_sites(sess, BENCH[1], BENCH[2])
+    print(f"v4.6 launches over {BENCH_STEPS} steps: {launches}; expected "
+          f"per step: {per_step}", flush=True)
+    require(per_step == {"warp_ds4_pair": 1, "warp_pair": 2, "warp_render": 1}
+            and launches == {k: v * BENCH_STEPS for k, v in per_step.items()},
+            "v4.6 launch counts differ from plan.kernel_sites")
+    del sess
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_v23(device, model_dir, rng, card, sess):
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.models.v23_arch import LABEL
+
+    # (a) f32 on the card against the CPU session, at a size whose conv
+    # sites reach conv3x3
+    b, h, w = V23_CHECK
+    f0, f1 = smooth_frames(rng, b, h, w)
+    ts = np.full(b, 0.5, np.float32)
+    want = RIFE(str(model_dir), device="cpu").process_batch(f0, f1, ts)
+    card32 = RIFE(str(model_dir), device=device, dtype=torch.float32)
+    reset_counts()
+    got = card32.process_batch(f0, f1, ts)
+    launches = read_counts()
+    expected = kernel_sites(card32, h, w)
+    print(f"v2.3 f32 {h}x{w} launches {launches}, expected {expected}",
+          flush=True)
+    require(launches == expected and launches.get("conv3x3", 0) > 0
+            and launches.get("warp_feat", 0) > 0,
+            "v2.3 f32 check did not launch the planned kernels")
+    assert_u8_close(got, want, f"v2.3 slice f32 cuda vs cpu {h}x{w}")
+    del card32
+    torch.cuda.empty_cache()
+
+    # (b) bf16 1080p B=8: frames/s, launches, PSNR of the first frames
+    # against f32 on the CPU
+    launches, res, (f0, f1) = bench(sess, device, LABEL, card)
+    per_step = kernel_sites(sess, BENCH[1], BENCH[2])
+    print(f"v2.3 launches over {BENCH_STEPS} steps: {launches}; expected "
+          f"per step from the graphs and gates: {per_step}", flush=True)
+    require(launches == {k: v * BENCH_STEPS for k, v in per_step.items()},
+            "v2.3 launch counts differ from plan.kernel_sites")
+    n = V23_PSNR_ITEMS
+    want = RIFE(str(model_dir), device="cpu").process_batch(
+        f0[:n], f1[:n], np.full(n, 0.5, np.float32))
+    p = psnr(res[:n], want)
+    print(f"v2.3 slice bf16 cuda vs f32 cpu {BENCH[1]}x{BENCH[2]} "
+          f"(first {n} frames of the B={BENCH[0]} step): PSNR {p:.2f} dB",
+          flush=True)
+    require(p >= 30.0, f"bf16 v2.3 slice PSNR {p:.2f} dB < 30 dB")
     return launches
 
 
@@ -244,6 +442,9 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; needs one "
               "NVIDIA GPU", file=sys.stderr)
         return 1
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import conv_sites
+    from rife_tpu_torch.models.v23_arch import write_v23_params
     from rife_tpu_torch.models.v46_arch import write_flownet_param
     from rife_tpu_torch.native import build
 
@@ -266,21 +467,42 @@ def main() -> int:
         if "registers" in ln or "spill" in ln:
             print(f"  ptxas: {ln.strip()}", flush=True)
 
-    rng = np.random.default_rng(20261016)
-    report = phase_kernels(device, rng)
-    model_dir = write_flownet_param(ROOT / "rife_tpu_torch" / "_build" / "models")
-    launches = phase_slice(device, model_dir, rng, card)
+    models = ROOT / "rife_tpu_torch" / "_build" / "models"
+    v46_dir = write_flownet_param(models)
+    v23_dir = write_v23_params(models)
+    v23 = RIFE(str(v23_dir), device=device)
+    require(v23.dtype == torch.bfloat16, "bf16 is the CUDA default")
+    sites = conv_sites(v23, BENCH[1], BENCH[2])
+    print(f"v2.3 conv3x3 sites at {BENCH[1]}x{BENCH[2]} (batch factor, "
+          f"parts, cout, stride, act, H, W): {sites}", flush=True)
 
-    kernels = [{
-        "name": name,
-        "route": "cuda",
-        "source": "rife_tpu_torch/csrc/warp.cu",
-        "replaces": replaces,
-        "launches": launches[name],
-        "max_abs_err": report[name]["max_abs_err"],
-        "ms": report[name]["ms"],
-        "plain_ms": report[name]["plain_ms"],
-    } for name, (_, _, replaces, _) in KERNELS.items()]
+    rng = np.random.default_rng(20261016)
+    torch.manual_seed(20261016)
+    report = {}
+    phase_pair_kernels(device, rng, report)
+    phase_single_warp(device, rng, report)
+    phase_conv(device, rng, report, sites)
+    by_path = {"v4.6": phase_v46(device, v46_dir, rng, card),
+               "v2.3": phase_v23(device, v23_dir, rng, card, v23)}
+
+    kernels = []
+    for name, (src, replaces, covers) in KERNELS.items():
+        counts = {path: c.get(name, 0) for path, c in by_path.items()}
+        require(sum(counts.values()) > 0, f"{name} never launched")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"rife_tpu_torch/csrc/{src}",
+            "replaces": replaces,
+            "also_replaces": covers,
+            "launches": sum(counts.values()),
+            "launches_by_path": counts,
+            "max_abs_err": report[name]["max_abs_err"],
+            "ms": report[name]["ms"],
+            "plain_ms": report[name]["plain_ms"],
+            **({"cudnn_bf16_ms": report[name]["cudnn_bf16_ms"]}
+               if "cudnn_bf16_ms" in report[name] else {}),
+        })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -3,8 +3,8 @@
 The JAX package ``rife_tpu`` stays the reference.  This package reuses its
 framework-free layers (``rife_tpu.graph``, ``rife_tpu.models.zoo``,
 ``rife_tpu.ops.common``) and never imports jax: the ops are PyTorch, and the
-warp kernels that ``rife_tpu`` wrote in Pallas are hand-written CUDA
-(``csrc/warp.cu``).
+warp and planar conv kernels that ``rife_tpu`` wrote in Pallas are
+hand-written CUDA (``csrc/warp.cu``, ``csrc/conv.cu``).
 
 Device and dtype policy: the device is always explicit.  Activations are
 bf16 on CUDA (f32 accumulation inside convs and kernels) and f32 on the CPU,

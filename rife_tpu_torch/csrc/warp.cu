@@ -1,5 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the three u8-origin warps on the
-// rife-v4.6 plain 2x path.  Plain C interface, loaded with ctypes by
+// Hand-written Hopper (sm_90a) kernels for the warps of the rife-v4.6 and
+// rife-v2.3 plain 2x paths.  Plain C interface, loaded with ctypes by
 // rife_tpu_torch/native/build.py; the PyTorch wrappers and plain twins are in
 // rife_tpu_torch/ops/warp.py.
 //
@@ -16,6 +16,13 @@
 //                       jax_ops._op_warp_ds4_pair (warp_pallas_ds4_pair /
 //                       _warp_kernel_u8_sheared_ds4_pair compute the same
 //                       function)                              [rife.WarpDs4Pair]
+//   rife_warp_single    float mode: _warp_pallas_impl -> _warp_kernel (K1, f32)
+//                       and _warp_pallas_packed_impl -> _warp_kernel_packed,
+//                       _packed_mc, _packed_mct (K2, bf16)  [rife.Warp on v2
+//                       contextnet feature maps]; u8 mode:
+//                       _warp_pallas_u8_impl_any (K4)  [unpaired rife.Warp of a
+//                       frame copy, v2 fusionnet]; raw flow or absolute positions
+//                       [rife.WarpDs4 off the pair kernel]
 //
 // What bounds them on the H100: a backward warp is a data-dependent gather at
 // about 2 FLOP per byte, so memory and latency bound it and the tensor cores
@@ -32,7 +39,12 @@
 // gathers of neighbouring threads fall on the same or adjacent lines and are
 // served by L1/L2 (__ldg, read-only path).  None of the TPU machinery carries
 // over: no u8-quad lane packing, no band/slab/sheared staging, no VMEM
-// stripes -- those exist because a TPU has no gather unit.
+// stripes -- those exist because a TPU has no gather unit.  The single warp
+// keeps that shape for any C: the position, corners and weights are computed
+// once per pixel, then a loop over the C planes gathers and writes each
+// channel (the channel-shared index of the TPU's mc kernel, without its
+// packing of two bf16 channels per word).  A contextnet feature warp at 1080p
+// B=16 (C=32, 272x480) reads ~4 B of flow and gathers 4 x 32 x 2 B per pixel.
 //
 // Rounding: every f32 operation uses the _rn intrinsics, so nvcc cannot
 // contract a multiply and an add into an FMA, and the result follows the twin's
@@ -206,10 +218,65 @@ __global__ void warp_ds4_pair_kernel(const T* __restrict__ img_a, const T* __res
   }
 }
 
+// K1/K2: ((v00*w00 + v01*w01) + v10*w10) + v11*w11 in f32 -- the Pallas
+// kernels' order where the four corners fall in one lane tile
+template <typename T>
+__device__ __forceinline__ float sample_feat(const T* plane, const Corners& k) {
+  float acc = __fmul_rn(ldf(plane + k.i00), k.w00);
+  acc = __fadd_rn(acc, __fmul_rn(ldf(plane + k.i01), k.w01));
+  acc = __fadd_rn(acc, __fmul_rn(ldf(plane + k.i10), k.w10));
+  return __fadd_rn(acc, __fmul_rn(ldf(plane + k.i11), k.w11));
+}
+
+// K1/K2/K4: one warp of a (B,C,H,W) image.  Output pixel (x, y) of the
+// (Ho,Wo) grid samples at (x, y) + flow(x, y) (flow of type P = T), or at the
+// absolute position pos(x, y) (P = float); one cast to T per channel.
+template <typename T, typename P, bool kAbs, bool kU8>
+__global__ void warp_single_kernel(const T* __restrict__ img, const P* __restrict__ pos,
+                                   T* __restrict__ out, int c, int h, int w, int ho,
+                                   int wo) {
+  int x = blockIdx.x * blockDim.x + threadIdx.x;
+  int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (x >= wo || y >= ho) return;
+  int b = blockIdx.z;
+  size_t plane_o = static_cast<size_t>(ho) * wo;
+  size_t plane = static_cast<size_t>(h) * w;
+  size_t p = static_cast<size_t>(y) * wo + x;
+  const P* pb = pos + 2 * plane_o * b;
+  float sx = ldf(pb + p), sy = ldf(pb + plane_o + p);
+  if (!kAbs) {
+    sx = __fadd_rn(static_cast<float>(x), sx);
+    sy = __fadd_rn(static_cast<float>(y), sy);
+  }
+  Corners k = corners(sx, sy, h, w);
+  const T* src = img + plane * c * b;
+  T* dst = out + plane_o * c * b + p;
+  for (int ch = 0; ch < c; ++ch) {
+    const T* pl = src + plane * ch;
+    float v = kU8 ? sample(pl, k) : sample_feat(pl, k);
+    dst[plane_o * ch] = store<T>(v);
+  }
+}
+
 constexpr int kBx = 32, kBy = 8;
 
 inline dim3 grid_for(int w, int h, int z) {
   return dim3((w + kBx - 1) / kBx, (h + kBy - 1) / kBy, z);
+}
+
+template <typename T, bool kU8>
+void launch_single(const void* img, const void* pos, void* out, int batch, int c, int h,
+                   int w, int ho, int wo, int abs_pos, cudaStream_t s) {
+  dim3 grid = grid_for(wo, ho, batch), block(kBx, kBy);
+  if (abs_pos) {
+    warp_single_kernel<T, float, true, kU8><<<grid, block, 0, s>>>(
+        static_cast<const T*>(img), static_cast<const float*>(pos), static_cast<T*>(out),
+        c, h, w, ho, wo);
+  } else {
+    warp_single_kernel<T, T, false, kU8><<<grid, block, 0, s>>>(
+        static_cast<const T*>(img), static_cast<const T*>(pos), static_cast<T*>(out), c,
+        h, w, ho, wo);
+  }
 }
 
 }  // namespace
@@ -278,6 +345,24 @@ int rife_warp_ds4_pair(const void* img_a, const void* flow_a, const void* img_b,
         static_cast<const T*>(img_a), static_cast<const T*>(flow_a),
         static_cast<const T*>(img_b), static_cast<const T*>(flow_b), static_cast<T*>(out_a),
         static_cast<T*>(out_b), h, w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// img (B,C,H,W); pos a raw flow (B,2,H,W) in the image dtype (abs_pos == 0,
+// then Ho == H, Wo == W) or float32 absolute positions (B,2,Ho,Wo); out
+// (B,C,Ho,Wo).  u8 != 0 samples round(clip(v,0,1)*255) and scales by 1/255
+// (K4; C == 3).
+int rife_warp_single(const void* img, const void* pos, void* out, int batch, int c, int h,
+                     int w, int ho, int wo, int abs_pos, int u8, int bf16, void* stream) {
+  if (!abs_pos && (ho != h || wo != w)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    if (u8) launch_single<__nv_bfloat16, true>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
+    else launch_single<__nv_bfloat16, false>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
+  } else {
+    if (u8) launch_single<float, true>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
+    else launch_single<float, false>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,0 +1,199 @@
+"""Which kernels one step of a session launches, worked out from its
+rewritten graphs, the blob shapes and the site gates, without running it.
+
+``kernel_sites(session, h, w)`` walks each net's rewritten graph as the
+pipeline feeds it (``engine/pipelines.py``), propagating (C, H, W) shapes
+through every layer kind the port runs, and applies the dispatch rules of
+``ops/torch_ops.py``: the pair kernels for paired u8-origin warps, the
+single-warp kernel in its u8 or float mode for the rest, and ``conv3x3``
+where the gates of ``ops/conv.py`` take a conv site.  The result, launches
+per kernel per step, does not depend on the batch size.  ``chip_smoke.py``
+holds the card's launch counters to it, and times ``conv3x3`` at each site
+``conv_sites`` lists.
+"""
+
+from __future__ import annotations
+
+from collections import Counter
+from typing import Dict, List, Tuple
+
+from rife_tpu.ops import common as C
+
+from ..ops import conv as CV
+from .session import pad_to
+
+Shape = Tuple[int, int, int]  # (C, H, W) of one batch item
+
+
+def _conv_out(node, h, w, transposed: bool):
+    _, k, dilation, stride, pad, _ = C.conv_hyperparams(node)
+    span = dilation * (k - 1)
+    if transposed:
+        return ((h - 1) * stride - 2 * pad + span + 1,
+                (w - 1) * stride - 2 * pad + span + 1)
+    return ((h + 2 * pad - span - 1) // stride + 1,
+            (w + 2 * pad - span - 1) // stride + 1)
+
+
+def _cut(shape: Shape, axis: int, start: int, end: int) -> Shape:
+    dims = list(shape)
+    end = min(end, dims[axis])
+    dims[axis] = end - start
+    return tuple(dims)
+
+
+def _walk(ex, inputs: Dict[str, Shape], outputs):
+    """(kernel launches, blob shapes, conv3x3 sites) of one run of ``ex``;
+    a site is the kernel call's (part channels, cout, stride, activation
+    code, input H, W)."""
+    g, ctx = ex.graph, ex.ctx
+    u8 = ctx.get("u8_image_blobs", ())
+    planar = ctx.get("planar_convs", False)
+    shapes = dict(inputs)
+    sites: Counter = Counter()
+    convs: List[tuple] = []
+
+    def single(blob, shape):
+        sites["warp_u8" if shape[0] == 3 and blob in u8 else "warp_feat"] += 1
+
+    def pair_ok(node, a, b, fa, fb):
+        return (a == b and fa == fb and a[0] == 3
+                and node.bottoms[0] in u8 and node.bottoms[2] in u8)
+
+    for idx in g.required_nodes(outputs, list(inputs)):
+        node = g.nodes[idx]
+        if node.type == "Input":
+            continue
+        ins = [shapes[b] for b in node.bottoms]
+        x = ins[0]
+        kind = node.type
+        if kind in ("Convolution", "ConvolutionCat"):
+            cin = sum(s[0] for s in ins)
+            cout = int(node.p(0))
+            _, _, _, stride, _, _ = C.conv_hyperparams(node)
+            act = CV.ACT_MAP.get(C.activation_of(node)[0])
+            parts = [s[0] for s in ins]
+            if len(parts) > CV.MAX_PARTS:
+                parts[CV.MAX_PARTS - 1:] = [sum(parts[CV.MAX_PARTS - 1:])]
+            if planar and kind == "ConvolutionCat" and \
+                    CV.cat_conv_wants_planar(node, x[1], x[2], cin, cout,
+                                             len(ins), ctx):
+                convs.append((tuple(parts), cout, stride, act, x[1], x[2]))
+            elif planar and CV.conv_wants_planar(node, x[1], x[2], cin, cout,
+                                                 ctx):
+                convs.append(((cin,), cout, stride, act, x[1], x[2]))
+            outs = [(cout, *_conv_out(node, x[1], x[2], False))]
+        elif kind in ("Deconvolution", "rife.DeconvPS"):
+            cout = int(node.p(0))
+            if (planar and kind == "Deconvolution"
+                    and CV.deconv_wants_planar(node, x[1], x[2], x[0], cout,
+                                               ctx)):
+                act = CV.ACT_MAP[C.activation_of(node)[0]]
+                convs.append(((x[0],), 4 * cout, 1, act, x[1], x[2]))
+            oh, ow = _conv_out(node, x[1], x[2], True)
+            if kind == "rife.DeconvPS":
+                outs = [(cout // 4, 2 * oh, 2 * ow)]
+            else:
+                outs = [(cout, oh, ow)]
+        elif kind == "PixelShuffle":
+            r = int(node.p(0, 1))
+            outs = [(x[0] // (r * r), x[1] * r, x[2] * r)]
+        elif kind == "Interp":
+            _, oh, ow = C.interp_out_size(x[1], x[2], node)
+            outs = [(x[0], oh, ow)]
+        elif kind == "Concat":
+            axis = int(node.p(0, 0))
+            dims = list(x)
+            dims[axis] = sum(s[axis] for s in ins)
+            outs = [tuple(dims)]
+        elif kind == "Crop":
+            y = x
+            for s, e, a in zip(node.p(-23309, []), node.p(-23310, []),
+                               node.p(-23311, [])):
+                y = _cut(y, int(a), int(s), int(e))
+            outs = [y]
+        elif kind == "Slice":
+            axis = int(node.p(1, 0))
+            sizes = C.slice_sizes(node, x[axis], len(node.tops))
+            outs, off = [], 0
+            for n in sizes:
+                outs.append(_cut(x, axis, off, off + int(n)))
+                off += int(n)
+        elif kind == "Split":
+            outs = [x] * len(node.tops)
+        elif kind == "BinaryOp":
+            outs = [tuple(max(d) for d in zip(*ins))]
+        elif kind in ("Eltwise", "Sigmoid", "Clip", "PReLU", "ReLU"):
+            outs = [x]
+        elif kind == "rife.Warp":
+            single(node.bottoms[0], x)
+            outs = [x]
+        elif kind == "rife.WarpDs4":
+            single(node.bottoms[0], x)
+            outs = [(x[0], x[1] // 4, x[2] // 4)]
+        elif kind in ("rife.WarpPair", "rife.WarpDs4Pair"):
+            a, fa, b, fb = ins
+            ds4 = kind == "rife.WarpDs4Pair"
+            if pair_ok(node, a, b, fa, fb) and not (
+                    ds4 and (a[1] % 4 or a[2] % 4)):
+                sites["warp_ds4_pair" if ds4 else "warp_pair"] += 1
+            else:
+                single(node.bottoms[0], a)
+                single(node.bottoms[2], b)
+            outs = [(s[0], s[1] // 4, s[2] // 4) if ds4 else s
+                    for s in (a, b)]
+        elif kind == "rife.RenderBlend":
+            a, fa, b, fb, _ = ins
+            if pair_ok(node, a, b, fa, fb):
+                sites["warp_render"] += 1
+            else:
+                single(node.bottoms[0], a)
+                single(node.bottoms[2], b)
+            outs = [a]
+        else:
+            raise NotImplementedError(f"layer type {kind!r}")
+        for top, shape in zip(node.tops, outs):
+            shapes[top] = shape
+    if convs:
+        sites["conv3x3"] = len(convs)
+    return sites, shapes, convs
+
+
+def _plan(session, h: int, w: int):
+    """(launches per kernel, [(batch factor, conv3x3 site), ...]) of one
+    step; the contextnet runs on both frames at once (batch factor 2)."""
+    ph, pw = pad_to(h), pad_to(w)
+    img = (3, ph, pw)
+    ex = session.executors
+    if session.model.family == "v4":
+        sites, _, convs = _walk(ex["flownet"], {"in0": img, "in1": img,
+                                                "in2": (1, ph, pw)}, ["out0"])
+        return sites, [(1, c) for c in convs]
+    sites, shapes, convs = _walk(ex["flownet"], {"input0": img, "input1": img},
+                                 ["flow"])
+    flow = shapes["flow"]
+    feat_names = ["f1", "f2", "f3", "f4"]
+    more, shapes, ctx_convs = _walk(ex["contextnet"], {
+        "input.1": img, "flow.0": (2, *flow[1:])}, feat_names)
+    feats = {str(3 + i + k): shapes[f] for k in (0, 4)
+             for i, f in enumerate(feat_names)}
+    fus, _, fus_convs = _walk(ex["fusionnet"], {
+        "img0": img, "img1": img, "flow": flow, **feats}, ["output"])
+    return (sites + more + fus,
+            [(1, c) for c in convs] + [(2, c) for c in ctx_convs]
+            + [(1, c) for c in fus_convs])
+
+
+def kernel_sites(session, h: int, w: int) -> Dict[str, int]:
+    """Kernel launches of one ``process_batch`` step on (h, w) frames."""
+    return dict(_plan(session, h, w)[0])
+
+
+def conv_sites(session, h: int, w: int) -> List[tuple]:
+    """The distinct ``conv3x3`` calls of one step on (h, w) frames, as
+    (batch factor, part channels, cout, stride, activation code, H, W)."""
+    seen = []
+    for factor, site in _plan(session, h, w)[1]:
+        if (factor, *site) not in seen:
+            seen.append((factor, *site))
+    return seen

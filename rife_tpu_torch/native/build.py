@@ -1,11 +1,12 @@
-"""Build + load the CUDA warp kernels (nvcc -> shared library -> ctypes).
+"""Build + load the CUDA kernels (nvcc -> shared library -> ctypes).
 
-``csrc/*.cu`` is compiled on first use into
-``rife_tpu_torch/_build/librife_warp.so`` (rebuilt when a source is newer)
-and loaded with ctypes; the C functions take ``c_void_p`` pointers and
-stream and return ``cudaGetLastError()``.  The build uses only the sources
-in this package.  A failed build raises; nothing falls back to the plain
-PyTorch twins.
+Each ``csrc/*.cu`` is compiled on first use by its own ``nvcc -c``, all of
+them started together, into ``rife_tpu_torch/_build/obj/``; the objects are
+linked into ``rife_tpu_torch/_build/librife_kernels.so`` (rebuilt when a
+source is newer) and loaded with ctypes.  The C functions take ``c_void_p``
+pointers and stream and return ``cudaGetLastError()``.  The build uses only
+the sources in this package.  A failed build raises; nothing falls back to
+the plain PyTorch twins.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from typing import Optional
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-LIB_PATH = BUILD_DIR / "librife_warp.so"
+OBJ_DIR = BUILD_DIR / "obj"
+LIB_PATH = BUILD_DIR / "librife_kernels.so"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 
 _lock = threading.Lock()
@@ -47,21 +49,47 @@ def _sources():
     return sorted(SRC_DIR.glob("*.cu"))
 
 
+def _run_all(cmds):
+    """Run the commands in parallel; returns their (returncode, stderr)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for c in cmds]
+    results = []
+    for proc in procs:
+        _, err = proc.communicate()
+        results.append((proc.returncode, err))
+    return results
+
+
 def compile_library() -> str:
-    """Compile ``csrc/*.cu`` into ``LIB_PATH``; returns the compiler's
-    diagnostics (``-Xptxas -v``: registers, shared memory, spills)."""
+    """Compile every ``csrc/*.cu`` (one ``nvcc -c`` each, in parallel) and
+    link ``LIB_PATH``; returns the compiler's diagnostics (``-Xptxas -v``:
+    registers, shared memory, spills)."""
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(exist_ok=True)
-    tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise BuildError(f"nvcc failed ({' '.join(cmd)}):\n{proc.stderr}")
-    tmp.replace(LIB_PATH)
-    return proc.stderr
+    OBJ_DIR.mkdir(parents=True, exist_ok=True)
+    tag = os.getpid()
+    sources = _sources()
+    objs = [OBJ_DIR / f"{src.stem}.{tag}.o" for src in sources]
+    cmds = [[nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-c",
+             "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(obj), str(src)]
+            for src, obj in zip(sources, objs)]
+    log = []
+    try:
+        for cmd, (rc, err) in zip(cmds, _run_all(cmds)):
+            if rc != 0:
+                raise BuildError(f"nvcc failed ({' '.join(cmd)}):\n{err}")
+            log.append(err)
+        tmp = LIB_PATH.with_name(f"{LIB_PATH.name}.{tag}.tmp")
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise BuildError(f"nvcc link failed ({' '.join(cmd)}):\n"
+                             f"{proc.stderr}")
+        tmp.replace(LIB_PATH)
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+    return "".join(log)
 
 
 def _stale() -> bool:
@@ -78,6 +106,14 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # 6 tensor pointers, batch, height, width, bf16 flag, stream
         fn.argtypes = [vp] * 6 + [i, i, i, i, vp]
         fn.restype = i
+    # image, flow/positions, out; batch, C, H, W, Ho, Wo, abs_pos, u8, bf16
+    lib.rife_warp_single.argtypes = [vp] * 3 + [i] * 9 + [vp]
+    lib.rife_warp_single.restype = i
+    # 4 part pointers, 4 channel counts, weight, bias, slope, out; batch, H,
+    # W, Cout, stride, activation, alpha, bf16, stream
+    lib.rife_conv3x3.argtypes = ([vp] * 4 + [i] * 4 + [vp] * 4 + [i] * 6
+                                 + [ctypes.c_float, i, vp])
+    lib.rife_conv3x3.restype = i
     lib.rife_error_string.argtypes = [i]
     lib.rife_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,6 +1,6 @@
-"""PyTorch implementations of the ncnn layer kinds the rife-v4.6 plain path
-runs (port of ``rife_tpu/ops/jax_ops.py``), driven by ``rife_tpu``'s
-``Executor``.
+"""PyTorch implementations of the ncnn layer kinds the rife-v4.6 and rife-v2.3
+plain paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by
+``rife_tpu``'s ``Executor``.
 
 Tensors are NCHW; an ncnn CHW axis ``a`` of a rank-4 blob is torch dim
 ``a + 1``.  Every kind outside ``OP_TABLE`` raises ``NotImplementedError``
@@ -17,15 +17,19 @@ in ``Executor.run``.  Parity traps handled here (ROADMAP queue C):
 * scalar constants are cast to the storage dtype before they multiply, as
   ``jnp.asarray(c, x.dtype)`` does.
 
-Plain convolutions go to ``F.conv2d`` (cuDNN on the card): the JAX package
-leaves them to XLA, outside any Pallas kernel.  The warps dispatch into
-``ops/warp.py``.
+Convolutions go to ``F.conv2d`` / ``F.conv_transpose2d`` (cuDNN on the
+card), as the JAX package leaves them to XLA, except at the sites that the
+TPU's planar executor sends to its Pallas convs: in a net run with ctx
+``planar_convs`` (the v1/v2/v3 nets), the gates of ``ops/conv.py`` route a
+site to the ``conv3x3`` kernel (K9-K12).  The warps dispatch into
+``ops/warp.py``: the pair kernels for paired u8-origin warps, the single-warp
+kernel for the rest (u8-origin mode K4, float mode K1/K2).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 import torch
@@ -33,6 +37,7 @@ import torch.nn.functional as F
 
 from rife_tpu.ops import common as C
 
+from . import conv as CV
 from . import warp as W
 
 
@@ -53,12 +58,18 @@ def _dim(axis: int, rank: int) -> int:
 # functional primitives
 # ---------------------------------------------------------------------------
 
-def apply_activation(y: torch.Tensor, act: int, params):
-    """The fused activations of the v4.6 convs: none or leaky relu."""
+def apply_activation(y: torch.Tensor, act: int, params, slope=None):
+    """The fused activations of the zoo's convs, in the storage dtype: none,
+    ReLU, leaky relu, and per-channel PReLU (``slope`` broadcastable to
+    (1,C,1,1), already in that dtype; ``jax_ops._prelu_ch``)."""
     if act == C.ACT_NONE:
         return y
+    if act == C.ACT_RELU:
+        return torch.clamp_min(y, 0)
     if act == C.ACT_LEAKY:
         return torch.where(y >= 0, y, y * _const(y, params[0]))
+    if act == C.ACT_PRELU_CH:
+        return torch.where(y >= 0, y, y * slope)
     raise NotImplementedError(f"fused activation {act} is not ported")
 
 
@@ -117,35 +128,86 @@ def resize2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 # layer table
 # ---------------------------------------------------------------------------
 
-def _conv_act(node, y):
-    return apply_activation(y, *C.activation_of(node))
+def _conv_act(node, y, p):
+    act, params = C.activation_of(node)
+    return apply_activation(y, act, params, p.get("slope"))
+
+
+def _kernel_act(node):
+    """(kernel activation code, leaky alpha) of a conv node."""
+    act, params = C.activation_of(node)
+    alpha = float(params[0]) if act == C.ACT_LEAKY else 0.2
+    return CV.ACT_MAP[act], alpha
+
+
+def _conv_kernel(node, parts, p, stride):
+    act, alpha = _kernel_act(node)
+    return CV.conv3x3([x.contiguous() for x in parts], p["weight"],
+                      p["bias_f32"], p.get("slope_f32"), stride=stride,
+                      act=act, alpha=alpha)
 
 
 def _op_convolution(node, inputs, w, ctx):
     _, _, dilation, stride, pad, _ = C.conv_hyperparams(node)
     p = ctx["w"][node.name]
-    y = F.conv2d(inputs[0], p["weight"], p["bias"], stride=stride,
-                 padding=pad, dilation=dilation)
-    return [_conv_act(node, y)]
+    x = inputs[0]
+    cout, cin = p["weight"].shape[0], p["weight"].shape[1]
+    if ctx.get("planar_convs") and CV.conv_wants_planar(
+            node, x.shape[2], x.shape[3], cin, cout, ctx):
+        return [_conv_kernel(node, [x], p, stride)]
+    y = F.conv2d(x, p["weight"], p["bias"], stride=stride, padding=pad,
+                 dilation=dilation)
+    return [_conv_act(node, y, p)]
 
 
 def _op_convolution_cat(node, inputs, w, ctx):
-    """ConvolutionCat (rewrite fuse_concat_into_convs): the concat is
-    re-materialized, identical semantics."""
+    """ConvolutionCat (rewrite fuse_concat_into_convs): at a gated site the
+    kernel reads the parts (more than four: the tail is concatenated into
+    the fourth); elsewhere the concat is re-materialized, identical
+    semantics."""
+    _, _, _, stride, _, _ = C.conv_hyperparams(node)
+    p = ctx["w"][node.name]
+    cout, cin = p["weight"].shape[0], p["weight"].shape[1]
+    h, wid = inputs[0].shape[2], inputs[0].shape[3]
+    if ctx.get("planar_convs") and CV.cat_conv_wants_planar(
+            node, h, wid, cin, cout, len(inputs), ctx):
+        parts = list(inputs)
+        if len(parts) > CV.MAX_PARTS:
+            tail = torch.cat(parts[CV.MAX_PARTS - 1:], dim=1)
+            parts = parts[:CV.MAX_PARTS - 1] + [tail]
+        return [_conv_kernel(node, parts, p, stride)]
     return _op_convolution(node, [torch.cat(inputs, dim=1)], w, ctx)
 
 
 def _op_deconvolution(node, inputs, w, ctx):
     _, k, dilation, stride, pad, _ = C.conv_hyperparams(node)
     p = ctx["w"][node.name]
-    y = F.conv_transpose2d(inputs[0], p["weight"], p["bias"], stride=stride,
+    x = inputs[0]
+    cin, cout = p["weight"].shape[0], p["weight"].shape[1]
+    if ctx.get("planar_convs") and CV.deconv_wants_planar(
+            node, x.shape[2], x.shape[3], cin, cout, ctx):
+        act, alpha = _kernel_act(node)
+        return [CV.deconv4x4(x.contiguous(), p["phase_weight"],
+                             p["phase_bias_f32"], p.get("phase_slope_f32"),
+                             act=act, alpha=alpha)]
+    y = F.conv_transpose2d(x, p["weight"], p["bias"], stride=stride,
                            padding=pad, dilation=dilation)
-    return [_conv_act(node, y)]
+    return [_conv_act(node, y, p)]
 
 
 def _op_deconv_ps(node, inputs, w, ctx):
     """rife.DeconvPS (rewrite fuse_pixelshuffle_into_convs): deconv, then
-    PixelShuffle by params[25]."""
+    PixelShuffle by params[25].  At a planar site the TPU runs
+    ``conv_planar.deconv_ps_planar``, which no ported net reaches: it
+    raises there."""
+    p = ctx["w"][node.name]
+    x = inputs[0]
+    if ctx.get("planar_convs") and CV.deconv_wants_planar(
+            node, x.shape[2], x.shape[3], p["weight"].shape[0],
+            p["weight"].shape[1], ctx):
+        raise NotImplementedError(
+            f"rife.DeconvPS {node.name} at a planar conv site "
+            f"(deconv_ps_planar) is not ported")
     y = _op_deconvolution(node, inputs, w, ctx)[0]
     return [F.pixel_shuffle(y, int(node.p(25, 2)))]
 
@@ -189,9 +251,31 @@ def _op_split(node, inputs, w, ctx):
     return [inputs[0]] * len(node.tops)
 
 
-# the op types the v4.6 graph uses
+def _op_prelu(node, inputs, w, ctx):
+    """Standalone PReLU (one slope per channel, or one shared), in the
+    storage dtype (``jax_ops._op_prelu``)."""
+    x = inputs[0]
+    slope = ctx["w"][node.name]["slope"]
+    shape = (1, -1) + (1,) * (x.ndim - 2)
+    return [torch.where(x >= 0, x, x * slope.reshape(shape))]
+
+
+def _op_relu(node, inputs, w, ctx):
+    slope = float(node.p(0, 0.0))
+    x = inputs[0]
+    if slope == 0.0:
+        return [torch.clamp_min(x, 0)]
+    return [torch.where(x >= 0, x, x * _const(x, slope))]
+
+
+def _op_clip(node, inputs, w, ctx):
+    return [torch.clamp(inputs[0], float(node.p(0)), float(node.p(1)))]
+
+
+# the op types the v4.6 and v2.3 graphs use
 _BINARY = {
     C.BINARY_ADD: lambda a, b: a + b,
+    C.BINARY_SUB: lambda a, b: a - b,
     C.BINARY_MUL: lambda a, b: a * b,
     C.BINARY_RSUB: lambda a, b: b - a,
 }
@@ -238,43 +322,46 @@ def _pair_ok(node, img_a, img_b, flow_a, flow_b, ctx) -> bool:
             and _is_u8(node.bottoms[2], img_b, ctx))
 
 
-def _unpaired(kind: str, node, image, flow, blob, ctx, ds4: bool):
-    """A single warp outside the pair kernels: plain PyTorch on the CPU;
-    on CUDA it waits for the single-warp kernel (K4), so it raises instead of
-    falling back to plain torch unnoticed."""
-    if image.device.type != "cpu":
-        raise NotImplementedError(
-            f"{kind} {node.name}: the single u8 warp kernel (K4, "
-            f"warp_pallas._warp_pallas_u8_impl_any) is not ported to CUDA "
-            f"yet (ROADMAP queue B); the pair kernels' gates failed here")
-    if not _is_u8(blob, image, ctx):
-        raise NotImplementedError(
-            f"{kind} {node.name}: float-image warps (K1/K2) are not ported "
-            f"yet (ROADMAP queue B)")
-    fn = W.warp_ds4_u8_ref if ds4 else W.warp_u8_ref
-    return fn(image, flow)
+def _single(node, image, flow, blob, ctx, ds4: bool):
+    """One warp outside the pair kernels: the single-warp kernel in its
+    u8-origin mode (K4) for 3-channel value copies of the frames, in its
+    float mode (K1/K2) otherwise.  ``ds4``: the fused warp + 1/4 downsample
+    of ``rife.WarpDs4`` (``jax_ops._op_warp_ds4``), sampled at the absolute
+    positions of the downsample's taps."""
+    fn = W.warp_u8 if _is_u8(blob, image, ctx) else W.warp_feat
+    image = image.contiguous()
+    if not ds4:
+        return fn(image, flow.contiguous())
+    h, wid = image.shape[2], image.shape[3]
+    if h % 4 or wid % 4:
+        return resize2d(fn(image, flow.contiguous()), round(h * 0.25),
+                        round(wid * 0.25))
+    return W.half_sum2(fn(image, W.ds4_positions(flow), abs_pos=True))
 
 
 def _op_warp(node, inputs, w, ctx):
-    return [_unpaired("rife.Warp", node, inputs[0], inputs[1],
-                      node.bottoms[0], ctx, ds4=False)]
+    return [_single(node, inputs[0], inputs[1], node.bottoms[0], ctx,
+                    ds4=False)]
 
 
 def _op_warp_ds4(node, inputs, w, ctx):
-    return [_unpaired("rife.WarpDs4", node, inputs[0], inputs[1],
-                      node.bottoms[0], ctx, ds4=True)]
+    return [_single(node, inputs[0], inputs[1], node.bottoms[0], ctx,
+                    ds4=True)]
+
+
+def _pair_inputs(inputs):
+    """Contiguous operands for the pair kernels (a v2 flownet warps channel
+    crops of Concat(input0, input1), which are strided views)."""
+    return [t.contiguous() for t in inputs]
 
 
 def _op_warp_pair(node, inputs, w, ctx):
     img_a, flow_a, img_b, flow_b = inputs
     if _pair_ok(node, img_a, img_b, flow_a, flow_b, ctx):
-        return list(W.warp_pair(img_a, flow_a.contiguous(),
-                                img_b, flow_b.contiguous()))
+        return list(W.warp_pair(*_pair_inputs(inputs)))
     return [
-        _unpaired("rife.WarpPair", node, img_a, flow_a, node.bottoms[0],
-                  ctx, ds4=False),
-        _unpaired("rife.WarpPair", node, img_b, flow_b, node.bottoms[2],
-                  ctx, ds4=False),
+        _single(node, img_a, flow_a, node.bottoms[0], ctx, ds4=False),
+        _single(node, img_b, flow_b, node.bottoms[2], ctx, ds4=False),
     ]
 
 
@@ -283,13 +370,10 @@ def _op_warp_ds4_pair(node, inputs, w, ctx):
     h, wid = img_a.shape[2], img_a.shape[3]
     if (h % 4 == 0 and wid % 4 == 0
             and _pair_ok(node, img_a, img_b, flow_a, flow_b, ctx)):
-        return list(W.warp_ds4_pair(img_a, flow_a.contiguous(),
-                                    img_b, flow_b.contiguous()))
+        return list(W.warp_ds4_pair(*_pair_inputs(inputs)))
     return [
-        _unpaired("rife.WarpDs4Pair", node, img_a, flow_a, node.bottoms[0],
-                  ctx, ds4=True),
-        _unpaired("rife.WarpDs4Pair", node, img_b, flow_b, node.bottoms[2],
-                  ctx, ds4=True),
+        _single(node, img_a, flow_a, node.bottoms[0], ctx, ds4=True),
+        _single(node, img_b, flow_b, node.bottoms[2], ctx, ds4=True),
     ]
 
 
@@ -301,13 +385,12 @@ def _op_render_blend(node, inputs, w, ctx):
     img_m, flow_m, img_i, flow_i, mask = inputs
     planar = node.tops[0] in ctx.get("planar_outputs", ())
     if _pair_ok(node, img_m, img_i, flow_m, flow_i, ctx):
-        out = W.warp_render(img_m, flow_m.contiguous(), img_i,
-                            flow_i.contiguous(), mask[:, 0].contiguous())
+        img_m, flow_m, img_i, flow_i = _pair_inputs(inputs[:4])
+        out = W.warp_render(img_m, flow_m, img_i, flow_i,
+                            mask[:, 0].contiguous())
         return [out if planar else out.permute(0, 2, 1, 3)]
-    wm = _unpaired("rife.RenderBlend", node, img_m, flow_m, node.bottoms[0],
-                   ctx, ds4=False)
-    wi = _unpaired("rife.RenderBlend", node, img_i, flow_i, node.bottoms[2],
-                   ctx, ds4=False)
+    wm = _single(node, img_m, flow_m, node.bottoms[0], ctx, ds4=False)
+    wi = _single(node, img_i, flow_i, node.bottoms[2], ctx, ds4=False)
     out = wm * mask + wi * (1 - mask)
     return [out.permute(0, 2, 1, 3) if planar else out]
 
@@ -323,6 +406,9 @@ OP_TABLE = {
     "Crop": _op_crop,
     "Slice": _op_slice,
     "Split": _op_split,
+    "PReLU": _op_prelu,
+    "ReLU": _op_relu,
+    "Clip": _op_clip,
     "BinaryOp": _op_binaryop,
     "Eltwise": _op_eltwise,
     "Sigmoid": _op_sigmoid,
@@ -342,26 +428,60 @@ _CONV_KINDS = ("Convolution", "ConvolutionCat")
 _DECONV_KINDS = ("Deconvolution", "rife.DeconvPS")
 
 
-def _entry(weight, bias, dtype, device) -> Dict[str, Optional[torch.Tensor]]:
-    def t(a):
-        return None if a is None else torch.from_numpy(
-            np.array(a, np.float32)).to(device=device, dtype=dtype)
+def _tensor(a, dtype, device):
+    return None if a is None else torch.from_numpy(
+        np.array(a, np.float32)).to(device=device, dtype=dtype)
 
-    return {"weight": t(weight), "bias": t(bias)}
+
+def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
+    """One conv's tensors: ``weight``, ``bias`` and the (1,C,1,1) ``slope``
+    in the storage dtype for the cuDNN sites (the XLA form); ``bias_f32``
+    and the per-channel ``slope_f32`` for the ``conv3x3`` sites (the
+    planar kernels' form); for a 4x4 stride-2 Deconvolution that the gates
+    can send to the kernel, its phase weights and the 4x tiled f32 bias and
+    slope (``ops/conv.py`` ``deconv_phase_weights``)."""
+    out_ch = weight.shape[1] if node.type in _DECONV_KINDS else weight.shape[0]
+    e = {"weight": _tensor(weight, dtype, device),
+         "bias": _tensor(bias, dtype, device)}
+    bias_f32 = None if bias is None else np.asarray(bias, np.float32)
+    e["bias_f32"] = _tensor(bias_f32, torch.float32, device)
+    slope_f32 = None
+    if slope is not None:
+        slope_f32 = np.broadcast_to(np.asarray(slope, np.float32).reshape(-1),
+                                    (out_ch,))
+        e["slope"] = _tensor(np.asarray(slope, np.float32).reshape(1, -1, 1, 1),
+                             dtype, device)
+        e["slope_f32"] = _tensor(slope_f32, torch.float32, device)
+    if node.type == "Deconvolution":
+        _, k, _, stride, pad, _ = C.conv_hyperparams(node)
+        if CV.planar_deconv_ok(weight.shape[0], out_ch, k, stride, pad):
+            w3 = CV.deconv_phase_weights(torch.from_numpy(
+                np.array(weight, np.float32)))
+            e["phase_weight"] = w3.to(device=device, dtype=dtype)
+            tile = lambda a: None if a is None else np.tile(a, 4)  # noqa: E731
+            e["phase_bias_f32"] = _tensor(tile(bias_f32), torch.float32, device)
+            if slope_f32 is not None:
+                e["phase_slope_f32"] = _tensor(tile(slope_f32), torch.float32,
+                                               device)
+    return e
 
 
 def prepare_weights(graph, raw, dtype=torch.float32, device="cpu"):
-    """ncnn-layout numpy weights -> torch tensors in the activation dtype.
+    """ncnn-layout numpy weights -> torch tensors (see ``_entry``).
 
     Convolution keeps ncnn's (O,I,kh,kw) = torch OIHW; Deconvolution keeps
-    ncnn's raw (I,O,kh,kw), which ``F.conv_transpose2d`` takes as it is."""
+    ncnn's raw (I,O,kh,kw), which ``F.conv_transpose2d`` takes as it is; a
+    standalone PReLU keeps its slopes, in the storage dtype."""
     out = {}
     for node in graph.nodes:
         lw = raw.get(node.name)
         if lw is None:
             continue
         if node.type in _CONV_KINDS + _DECONV_KINDS:
-            out[node.name] = _entry(lw.weight, lw.bias, dtype, device)
+            out[node.name] = _entry(node, lw.weight, lw.bias, lw.slope, dtype,
+                                    device)
+        elif node.type == "PReLU":
+            out[node.name] = {"slope": _tensor(lw.slope, dtype, device)}
     return out
 
 
@@ -372,12 +492,18 @@ def weights_from_jax(graph, tree, dtype=torch.float32, device="cpu"):
     out = {}
     for node in graph.nodes:
         e = tree.get(node.name)
-        if e is None or node.type not in _CONV_KINDS + _DECONV_KINDS:
+        if e is None:
+            continue
+        if node.type == "PReLU":
+            out[node.name] = {"slope": _tensor(e["slope"], dtype, device)}
+            continue
+        if node.type not in _CONV_KINDS + _DECONV_KINDS:
             continue
         hwio = np.asarray(e["hwio"], np.float32)
         if node.type in _CONV_KINDS:
             weight = hwio.transpose(3, 2, 0, 1)
         else:
             weight = hwio[::-1, ::-1].transpose(2, 3, 0, 1)
-        out[node.name] = _entry(weight, e["bias"], dtype, device)
+        out[node.name] = _entry(node, weight, e["bias"], e.get("slope"),
+                                dtype, device)
     return out

@@ -1,5 +1,5 @@
-"""The main path's three warps: CUDA kernel wrappers, plain PyTorch twins and
-launch counters.
+"""The warps of the ported paths: CUDA kernel wrappers, plain PyTorch twins
+and launch counters.
 
 Each function computes what a ``rife_tpu/ops/warp_pallas.py`` kernel
 computes, from the math (the kernels themselves live in
@@ -13,6 +13,13 @@ computes, from the math (the kernels themselves live in
   ``abs_pos=True`` plus the two ``_downsample_axis`` passes of
   ``jax_ops._op_warp_ds4_pair`` (K7; K8 computes the same function;
   ``rife.WarpDs4Pair``)
+* ``warp_feat``      <- ``_warp_pallas_impl`` (K1, f32) and
+  ``_warp_pallas_packed_impl`` (K2, bf16: ``_warp_kernel_packed``,
+  ``_packed_mc``, ``_packed_mct``): one warp of a float image of any C
+  (the v2 contextnet's feature maps), raw flow or absolute positions
+* ``warp_u8``        <- ``_warp_pallas_u8_impl_any`` (K4): one u8-origin
+  warp (a ``rife.Warp`` of a frame copy that no sibling pairs with, as in
+  the v2 fusionnet); the same kernel as ``warp_feat`` in its u8 mode
 
 The shared u8-origin warp, per output pixel and channel:
 
@@ -25,14 +32,22 @@ The shared u8-origin warp, per output pixel and channel:
   ``w00=(1-a)(1-b)``, ``w01=a(1-b)``, ``w10=(1-a)b``, ``w11=ab``;
 * output ``(acc * f32(1/255))`` cast to the storage dtype.
 
+The float warp (K1/K2) takes the image values ``v`` themselves, the same
+corners and weights, and sums in the order the Pallas kernels do where the
+four corners fall in one 128-lane tile: ``((v00*w00 + v01*w01) + v10*w10)
++ v11*w11`` in f32, then one cast to the storage dtype.  (Where x0 and x1
+straddle a lane tile, or the corners clamp together, the Pallas kernels
+group the terms otherwise: ~1 ulp of f32.)
+
 Numeric trap: on the CPU the JAX package never runs this Pallas form
 (``use_pallas_warp`` is off there); it runs ``jax_ops.warp_at``, which lerps
 ``v/255`` values with UNCLAMPED fractions in the storage dtype.  The two agree
 algebraically and round differently, so a test states which one it holds the
 port to: the twins below follow the Pallas form.
 
-Layout: NCHW.  Images (B,3,H,W) and flows (B,2,H,W) in one float dtype
-(f32 or bf16); ``warp_render`` takes the mask as (B,H,W) and writes
+Layout: NCHW.  Images (B,3,H,W) (any C for ``warp_feat``) and flows
+(B,2,H,W) in one float dtype (f32 or bf16); absolute positions are (B,2,Ho,Wo)
+float32 ``(sx, sy)``; ``warp_render`` takes the mask as (B,H,W) and writes
 (B,H,3,W) planes for ``frame.postprocess_planar``.
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
@@ -49,7 +64,8 @@ from ..native import build
 
 INV255 = 1.0 / 255.0  # used as f32(1/255), as the Pallas kernels do
 
-LAUNCHES = {"warp_pair": 0, "warp_render": 0, "warp_ds4_pair": 0}
+LAUNCHES = {"warp_pair": 0, "warp_render": 0, "warp_ds4_pair": 0,
+            "warp_feat": 0, "warp_u8": 0}
 
 
 def reset_launches() -> None:
@@ -61,12 +77,18 @@ def reset_launches() -> None:
 # plain PyTorch twins
 # ---------------------------------------------------------------------------
 
-def _warp_acc(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
-    """f32 bilinear sum of the u8 values of ``img`` (B,C,H,W) at absolute
-    positions (B,Ho,Wo) -> (B,C,Ho,Wo) f32, the sum not yet scaled."""
+def _warp_acc(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
+              u8: bool = True):
+    """f32 bilinear sum of ``img`` (B,C,H,W) at absolute positions
+    (B,Ho,Wo) -> (B,C,Ho,Wo) f32.  ``u8``: of the u8 values of the image,
+    not yet scaled; otherwise of the values themselves, in the float
+    warp's order."""
     b, c, h, w = img.shape
     ho, wo = sx.shape[1], sx.shape[2]
-    u = torch.round(img.float().clamp(0.0, 1.0) * 255.0).reshape(b, c, h * w)
+    v = img.float()
+    if u8:
+        v = torch.round(v.clamp(0.0, 1.0) * 255.0)
+    v = v.reshape(b, c, h * w)
     x0 = torch.floor(sx).to(torch.int32).clamp(0, w - 1)
     y0 = torch.floor(sy).to(torch.int32).clamp(0, h - 1)
     x1 = (x0 + 1).clamp(max=w - 1)
@@ -76,15 +98,20 @@ def _warp_acc(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor):
 
     def g(yy, xx):
         idx = (yy.long() * w + xx.long()).reshape(b, 1, ho * wo)
-        return torch.gather(u, 2, idx.expand(b, c, ho * wo)).reshape(
+        return torch.gather(v, 2, idx.expand(b, c, ho * wo)).reshape(
             b, c, ho, wo)
 
     w00 = (1.0 - a) * (1.0 - bb)
     w01 = a * (1.0 - bb)
     w10 = (1.0 - a) * bb
     w11 = a * bb
-    return (g(y0, x0) * w00 + g(y0, x1) * w01) + (
-        g(y1, x0) * w10 + g(y1, x1) * w11)
+    if u8:
+        return (g(y0, x0) * w00 + g(y0, x1) * w01) + (
+            g(y1, x0) * w10 + g(y1, x1) * w11)
+    acc = g(y0, x0) * w00
+    acc = acc + g(y0, x1) * w01
+    acc = acc + g(y1, x0) * w10
+    return acc + g(y1, x1) * w11
 
 
 def _grid_positions(flow: torch.Tensor):
@@ -101,9 +128,24 @@ def _scaled(acc: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return (acc * INV255).to(dtype)
 
 
-def warp_u8_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """One u8-origin warp by a raw flow, (B,C,H,W) -> (B,C,H,W)."""
-    return _scaled(_warp_acc(img, *_grid_positions(flow)), img.dtype)
+def _positions(flow: torch.Tensor, abs_pos: bool):
+    if abs_pos:
+        return flow[:, 0].float(), flow[:, 1].float()
+    return _grid_positions(flow)
+
+
+def warp_u8_ref(img: torch.Tensor, flow: torch.Tensor,
+                abs_pos: bool = False) -> torch.Tensor:
+    """Twin of K4: one u8-origin warp by a raw flow (B,2,H,W), or at
+    absolute positions (B,2,Ho,Wo); (B,C,H,W) -> (B,C,Ho,Wo)."""
+    return _scaled(_warp_acc(img, *_positions(flow, abs_pos)), img.dtype)
+
+
+def warp_feat_ref(img: torch.Tensor, flow: torch.Tensor,
+                  abs_pos: bool = False) -> torch.Tensor:
+    """Twin of K1/K2: one warp of a float image of any C, by a raw flow or
+    at absolute positions, summed in f32 and cast once."""
+    return _warp_acc(img, *_positions(flow, abs_pos), u8=False).to(img.dtype)
 
 
 def warp_pair_ref(img_a, flow_a, img_b, flow_b):
@@ -138,16 +180,28 @@ def _half_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return pairs.select(dim + 1, 0) * half + pairs.select(dim + 1, 1) * half
 
 
-def warp_ds4_u8_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
-    """Warp then 1/4 half-pixel downsample, evaluated on the tap grid:
-    (B,C,H,W) -> (B,C,H/4,W/4)."""
-    h, w = img.shape[2], img.shape[3]
-    ry, rx = _ds4_taps(h, img.device), _ds4_taps(w, img.device)
+def ds4_positions(flow: torch.Tensor) -> torch.Tensor:
+    """Raw flow (B,2,H,W) -> absolute f32 positions (B,2,H/2,W/2) of the
+    taps a 1/4 half-pixel downsample reads: tap + flow(tap)
+    (``jax_ops._ds4_abs_positions``)."""
+    h, w = flow.shape[2], flow.shape[3]
+    ry, rx = _ds4_taps(h, flow.device), _ds4_taps(w, flow.device)
     fc = flow.index_select(2, ry).index_select(3, rx).float()
     sx = rx.float().reshape(1, 1, -1) + fc[:, 0]
     sy = ry.float().reshape(1, -1, 1) + fc[:, 1]
-    y = _scaled(_warp_acc(img, sx, sy), img.dtype)
+    return torch.stack([sx, sy], dim=1)
+
+
+def half_sum2(y: torch.Tensor) -> torch.Tensor:
+    """The two 0.5/0.5 passes (rows, then columns) that finish a warp on
+    the tap grid into the 1/4-resolution result."""
     return _half_sum(_half_sum(y, 2), 3)
+
+
+def warp_ds4_u8_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Warp then 1/4 half-pixel downsample, evaluated on the tap grid:
+    (B,C,H,W) -> (B,C,H/4,W/4)."""
+    return half_sum2(warp_u8_ref(img, ds4_positions(flow), abs_pos=True))
 
 
 def warp_ds4_pair_ref(img_a, flow_a, img_b, flow_b):
@@ -246,3 +300,62 @@ def warp_ds4_pair(img_a, flow_a, img_b, flow_b):
             b, h, w, code, img_a.device)
     LAUNCHES["warp_ds4_pair"] += 1
     return out_a, out_b
+
+
+def _check_single(img, pos, abs_pos: bool):
+    """Validate the single-warp kernel's operands; returns (B,C,H,W,Ho,Wo,
+    dtype code)."""
+    if img.device.type != "cuda":
+        raise ValueError(f"warp kernels take CUDA or CPU tensors, got "
+                         f"{img.device}")
+    if img.dtype not in _DTYPE_CODE:
+        raise TypeError(f"warp kernels take float32 or bfloat16, got "
+                        f"{img.dtype}")
+    if img.dim() != 4:
+        raise ValueError(f"image must be (B,C,H,W), got {tuple(img.shape)}")
+    b, c, h, w = img.shape
+    want_dtype = torch.float32 if abs_pos else img.dtype
+    if pos.dim() != 4 or pos.shape[0] != b or pos.shape[1] != 2 or (
+            not abs_pos and tuple(pos.shape[2:]) != (h, w)):
+        what = "positions (B,2,Ho,Wo)" if abs_pos else f"flow {(b, 2, h, w)}"
+        raise ValueError(f"{what} expected, got {tuple(pos.shape)}")
+    if pos.device != img.device or pos.dtype != want_dtype:
+        raise ValueError(f"flow/positions on {pos.device}/{pos.dtype}, "
+                         f"expected {img.device}/{want_dtype}")
+    if not (img.is_contiguous() and pos.is_contiguous()):
+        raise ValueError("image and flow/positions must be contiguous")
+    return b, c, h, w, pos.shape[2], pos.shape[3], _DTYPE_CODE[img.dtype]
+
+
+def _warp_single(name: str, img, pos, abs_pos: bool, u8: bool):
+    b, c, h, w, ho, wo, code = _check_single(img, pos, abs_pos)
+    if u8 and c != 3:
+        raise ValueError(f"the u8-origin warp takes 3 channels, got {c}")
+    out = torch.empty((b, c, ho, wo), dtype=img.dtype, device=img.device)
+    lib = build.load()
+    stream = torch.cuda.current_stream(img.device).cuda_stream
+    rc = lib.rife_warp_single(_ptr(img), _ptr(pos), _ptr(out), b, c, h, w, ho,
+                              wo, int(abs_pos), int(u8), code,
+                              ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"rife_warp_single: CUDA error {rc} "
+                           f"({build.error_string(rc)})")
+    LAUNCHES[name] += 1
+    return out
+
+
+def warp_feat(img, flow, abs_pos: bool = False):
+    """K1/K2 on CUDA, the twin on the CPU: a float image (B,C,H,W) warped by
+    a raw flow (B,2,H,W) in its dtype, or sampled at float32 absolute
+    positions (B,2,Ho,Wo)."""
+    if img.device.type == "cpu":
+        return warp_feat_ref(img, flow, abs_pos)
+    return _warp_single("warp_feat", img, flow, abs_pos, u8=False)
+
+
+def warp_u8(img, flow, abs_pos: bool = False):
+    """K4 on CUDA, the twin on the CPU: one u8-origin warp of a
+    (B,3,H,W) frame copy, by a raw flow or at absolute positions."""
+    if img.device.type == "cpu":
+        return warp_u8_ref(img, flow, abs_pos)
+    return _warp_single("warp_u8", img, flow, abs_pos, u8=True)

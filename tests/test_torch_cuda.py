@@ -1,13 +1,14 @@
-"""The port on the card: each CUDA warp kernel against its plain PyTorch twin,
-and the slice on CUDA against the same session on the CPU.
+"""The port on the card: each CUDA kernel against its plain PyTorch twin, and
+the v4.6 and v2.3 slices on CUDA against the same sessions on the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel has
 no CPU mode).  The file imports no jax, so it also runs where jax is absent:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
-Tolerances: those of tests/test_torch_warp.py for the kernels (f32 max
-|d| <= 2e-6; bf16 <= 1 ulp and exact on >= 99%); for the slice, u8 max
-|d| <= 1 and exact on >= 99.9% of pixels (cuDNN sums in another order than
-the CPU).
+Tolerances: those of tests/test_torch_warp.py for the warp kernels (f32 max
+|d| <= 2e-6; bf16 <= 1 ulp and exact on >= 99%), of tests/test_torch_conv.py
+for conv3x3 (f32 max |d| <= 1e-5 of the largest output; bf16 as the warps);
+for the slices, u8 max |d| <= 1 and exact on >= 99.9% of pixels (cuDNN sums
+in another order than the CPU).
 """
 
 import numpy as np
@@ -40,11 +41,18 @@ def inputs(seed, b, h, w, dtype, device):
             for x in (img(), fa, img(), fb, mask)]
 
 
-def check(got, want):
+def launched():
+    """The warp kernels launched since the last reset."""
+    return {k: v for k, v in W.LAUNCHES.items() if v}
+
+
+def check(got, want, f32_rel=None):
     assert got.dtype == want.dtype and got.shape == want.shape
     diff = (got.float() - want.float()).abs().cpu()
     if want.dtype == torch.float32:
-        assert float(diff.max()) <= 2e-6
+        bound = 2e-6 if f32_rel is None else f32_rel * float(
+            want.abs().max())
+        assert float(diff.max()) <= bound
     else:
         r = want.float().abs().cpu().clamp_min(2.0 ** -126)
         assert bool((diff <= torch.pow(2.0, torch.floor(torch.log2(r)) - 7)).all())
@@ -62,7 +70,7 @@ def test_kernels_match_twins(cuda_device, shape, dtype):
             W.warp_render_ref(ia, fa, ib, fb, m),
             *W.warp_ds4_pair_ref(ia, fa, ib, fb)]
     torch.cuda.synchronize()
-    assert W.LAUNCHES == {"warp_pair": 1, "warp_render": 1, "warp_ds4_pair": 1}
+    assert launched() == {"warp_pair": 1, "warp_render": 1, "warp_ds4_pair": 1}
     for g, r in zip(got, want):
         check(g, r)
 
@@ -117,18 +125,143 @@ def test_slice_launches_each_kernel_per_step(cuda_device, model_dir):
     out = sess.process_batch_device(a, b, np.full(2, 0.5, np.float32))
     torch.cuda.synchronize()
     assert out.shape == (2, 64, 96, 3) and out.device.type == "cuda"
-    assert W.LAUNCHES == {"warp_pair": 2, "warp_render": 1, "warp_ds4_pair": 1}
+    assert launched() == {"warp_pair": 2, "warp_render": 1, "warp_ds4_pair": 1}
 
 
-def test_unfused_warp_raises_on_cuda(cuda_device, model_dir, monkeypatch):
-    """Without the rewrites the graph runs unpaired warps, whose kernel (K4)
-    is not ported: the card raises instead of taking plain torch."""
+def test_unfused_warps_take_single_kernel_on_cuda(cuda_device, model_dir,
+                                                  monkeypatch):
+    """Without the rewrites the graph runs unpaired warps: on the card each
+    launches the single-warp kernel's u8 mode (K4), and the result stays
+    within the slice tolerance of the fused graph."""
     from rife_tpu_torch import RIFE
     from rife_tpu_torch.engine import session
 
+    a, b = frames(32, 32)
+    ts = np.full(2, 0.5, np.float32)
+    fused = RIFE(str(model_dir), device=cuda_device).process_batch(a, b, ts)
     monkeypatch.setattr(session, "rewrite_flownet",
                         lambda graph, weights: (graph, weights))
     sess = RIFE(str(model_dir), device=cuda_device)
-    a, b = frames(32, 32)
-    with pytest.raises(NotImplementedError, match="K4"):
-        sess.process_batch(a, b, np.full(2, 0.5, np.float32))
+    W.reset_launches()
+    got = sess.process_batch(a, b, ts)
+    assert W.LAUNCHES["warp_u8"] == 8 and W.LAUNCHES["warp_pair"] == 0
+    diff = np.abs(got.astype(np.int16) - fused.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+def feat_inputs(seed, b, c, h, w, dtype, device):
+    rng = np.random.default_rng(seed)
+    img = rng.normal(size=(b, c, h, w)) * 2
+    flow = rng.normal(size=(b, 2, h, w)) * 5
+    flow[:, :, : h // 6] += 20.0
+    return [torch.from_numpy(x.astype(np.float32)).to(device=device,
+                                                       dtype=dtype)
+            for x in (img, flow)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w", [(16, 32, 272, 480), (2, 7, 33, 61),
+                                     (2, 256, 34, 60)])
+def test_single_warp_kernel_matches_twins(cuda_device, b, c, h, w, dtype):
+    img, flow = feat_inputs(8, b, c, h, w, dtype, cuda_device)
+    pos = W.ds4_positions(flow)
+    u8 = (img[:, :3].float().sigmoid() * 255).round().div(255).to(dtype)
+    W.reset_launches()
+    got = [W.warp_feat(img, flow), W.warp_feat(img, pos, abs_pos=True),
+           W.warp_u8(u8.contiguous(), flow), W.warp_u8(u8.contiguous(), pos,
+                                                       abs_pos=True)]
+    want = [W.warp_feat_ref(img, flow),
+            W.warp_feat_ref(img, pos, abs_pos=True),
+            W.warp_u8_ref(u8, flow), W.warp_u8_ref(u8, pos, abs_pos=True)]
+    torch.cuda.synchronize()
+    assert W.LAUNCHES["warp_feat"] == 2 and W.LAUNCHES["warp_u8"] == 2
+    for g, r in zip(got, want):
+        check(g, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("parts,cout,stride,act,h,w", [
+    ((3,), 32, 2, 3, 1088, 1920),     # contextnet entry
+    ((32,), 32, 1, 3, 272, 480),
+    ((3, 3, 4), 48, 2, 3, 544, 960),  # flownet block entry (3 parts)
+    ((96,), 16, 1, 0, 68, 120),       # deconv phases
+    ((5,), 7, 1, 2, 33, 41),
+    ((17, 9), 20, 2, 1, 18, 26),
+])
+def test_conv_kernel_matches_twin(cuda_device, parts, cout, stride, act, h,
+                                  w, dtype):
+    from rife_tpu_torch.ops import conv as CV
+
+    rng = np.random.default_rng(9)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
+        device=cuda_device, dtype=dt).contiguous()
+    xs = [t(rng.normal(size=(2, c, h, w)), dtype) for c in parts]
+    weight = t(rng.normal(size=(cout, sum(parts), 3, 3)) * 0.2, dtype)
+    bias = t(rng.normal(size=cout), torch.float32)
+    slope = t(rng.uniform(0, 0.5, cout), torch.float32)
+    CV.reset_launches()
+    got = CV.conv3x3(xs, weight, bias, slope, stride=stride, act=act)
+    want = CV.conv3x3_ref(xs, weight, bias, slope, stride=stride, act=act)
+    torch.cuda.synchronize()
+    assert CV.LAUNCHES == {"conv3x3": 1}
+    check(got, want, f32_rel=1e-5)
+
+
+def test_failed_launch_raises(cuda_device):
+    """A launch the card refuses (grid z over 65535) raises; nothing runs a
+    twin in its place."""
+    from rife_tpu_torch.ops import conv as CV
+
+    x = torch.zeros(70000, 1, 2, 2, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        W.warp_feat(x, torch.zeros(70000, 2, 2, 2, device=cuda_device))
+    CV.reset_launches()
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        CV.conv3x3([torch.zeros(4100, 1, 2, 2, device=cuda_device)],
+                   torch.zeros(256, 1, 3, 3, device=cuda_device))
+    assert CV.LAUNCHES == {"conv3x3": 0}
+
+
+def test_failed_build_raises_on_cuda(cuda_device, tmp_path, monkeypatch):
+    """A source that does not compile makes the first kernel call raise."""
+    from rife_tpu_torch.native import build
+
+    (tmp_path / "broken.cu").write_text("this is not CUDA\n")
+    monkeypatch.setattr(build, "SRC_DIR", tmp_path)
+    monkeypatch.setattr(build, "OBJ_DIR", tmp_path / "obj")
+    monkeypatch.setattr(build, "LIB_PATH", tmp_path / "lib.so")
+    monkeypatch.setattr(build, "_lib", None)
+    img, flow = feat_inputs(10, 1, 4, 8, 8, torch.float32, cuda_device)
+    with pytest.raises(build.BuildError, match="nvcc failed"):
+        W.warp_feat(img, flow)
+
+
+@pytest.fixture(scope="module")
+def v23_dir(tmp_path_factory):
+    from rife_tpu_torch.models.v23_arch import write_v23_params
+
+    return write_v23_params(tmp_path_factory.mktemp("cuda23"), (8, 8, 8, 8, 4))
+
+
+def test_v23_slice_f32_matches_cpu(cuda_device, v23_dir, monkeypatch):
+    """Every conv site the channel gates admit runs conv3x3 (size gates
+    lowered to 0); the card matches the CPU session and launches each
+    kernel as often as plan.kernel_sites says."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.ops import conv as CV
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
+    monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
+    a, b = frames(64, 96)
+    ts = np.full(2, 0.5, np.float32)
+    want = RIFE(str(v23_dir), device="cpu").process_batch(a, b, ts)
+    sess = RIFE(str(v23_dir), device=cuda_device, dtype=torch.float32)
+    W.reset_launches()
+    CV.reset_launches()
+    got = sess.process_batch(a, b, ts)
+    assert {**launched(), **CV.LAUNCHES} == kernel_sites(sess, 64, 96)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999

@@ -80,6 +80,7 @@ def test_op_table_kinds():
         "PixelShuffle", "Interp", "Concat", "Crop", "Slice", "Split",
         "BinaryOp", "Eltwise", "Sigmoid", "rife.Warp", "rife.WarpDs4",
         "rife.WarpPair", "rife.WarpDs4Pair", "rife.RenderBlend",
+        "PReLU", "ReLU", "Clip",
     }
     assert set(torch_ops.OP_TABLE) <= set(jax_ops.OP_TABLE)
 
@@ -87,10 +88,10 @@ def test_op_table_kinds():
 def test_unported_kind_raises():
     g = SimpleNamespace(
         nodes=[LayerNode("Input", "x", [], ["x"]),
-               LayerNode("ReLU", "r", ["x"], ["y"])],
+               LayerNode("Pooling", "r", ["x"], ["y"])],
         required_nodes=lambda outs, given: [0, 1])
     ex = Executor(g, torch_ops.OP_TABLE, {})
-    with pytest.raises(NotImplementedError, match="ReLU"):
+    with pytest.raises(NotImplementedError, match="Pooling"):
         ex.run({"x": torch.zeros(1, 1, 2, 2)}, ["y"])
 
 
@@ -278,10 +279,87 @@ def test_warp_ops_on_cpu_take_the_twins():
 
 
 def test_unpaired_warp_needs_u8_image():
+    """An unpaired warp takes the single-warp kernel's u8 mode (K4) only on
+    a frame copy; any other image takes its float mode (K1/K2)."""
     ia, fa, _, _ = _warp_inputs()
     nd = node("rife.Warp", 2, {})
     got = torch_ops.OP_TABLE["rife.Warp"](
         nd, [ia, fa], None, {"u8_image_blobs": frozenset(("in0",))})[0]
     assert torch.equal(got, W.warp_u8_ref(ia, fa))
-    with pytest.raises(NotImplementedError, match="float-image"):
-        torch_ops.OP_TABLE["rife.Warp"](nd, [ia, fa], None, {})
+    got = torch_ops.OP_TABLE["rife.Warp"](nd, [ia, fa], None, {})[0]
+    assert torch.equal(got, W.warp_feat_ref(ia, fa))
+
+
+def test_unpaired_warp_ds4_on_tap_grid():
+    ia, fa, _, _ = _warp_inputs()
+    nd = node("rife.WarpDs4", 2, {})
+    ctx = {"u8_image_blobs": frozenset(("in0",))}
+    got = torch_ops.OP_TABLE["rife.WarpDs4"](nd, [ia, fa], None, ctx)[0]
+    assert torch.equal(got, W.warp_ds4_u8_ref(ia, fa))
+    feat = torch_ops.OP_TABLE["rife.WarpDs4"](nd, [ia, fa], None, {})[0]
+    assert torch.equal(feat, W.half_sum2(W.warp_feat_ref(
+        ia, W.ds4_positions(fa), abs_pos=True)))
+    assert feat.shape == (2, 3, 4, 6)
+
+
+@pytest.mark.parametrize("n_slope", [1, 5])
+def test_prelu_standalone(n_slope):
+    nd = node("PReLU", 1, {0: n_slope})
+    raw = {nd.name: LayerWeights(slope=RNG.uniform(0, 0.5, n_slope).astype(
+        np.float32))}
+    same(*run_both(nd, [rand(2, 6, 8, 5)], raw))
+
+
+@pytest.mark.parametrize("params", [{}, {0: 0.1}])
+def test_relu(params):
+    same(*run_both(node("ReLU", 1, params), [rand(2, 6, 8, 4)]))
+
+
+def test_clip_and_sub():
+    same(*run_both(node("Clip", 1, {0: 0.0, 1: 1.0}),
+                   [rand(2, 6, 8, 3, scale=2.0)]))
+    same(*run_both(node("BinaryOp", 1, {0: 1, 1: 1, 2: 1.0}),
+                   [rand(2, 6, 8, 3)]))
+    same(*run_both(node("BinaryOp", 2, {0: 1}),
+                   [rand(2, 6, 8, 3), rand(2, 6, 8, 3)]))
+    # the v2 fusionnet's mask (1 channel) times a warped frame (3)
+    same(*run_both(node("BinaryOp", 2, {0: 2}),
+                   [rand(2, 6, 8, 3), rand(2, 6, 8, 1)]))
+
+
+@pytest.mark.parametrize("kind", ["Convolution", "Deconvolution"])
+def test_fused_prelu_on_cudnn_sites(kind):
+    """ACT_PRELU_CH (fuse_prelu_activations) on the convs that stay on
+    cuDNN: the XLA form, bias and slope in the storage dtype."""
+    if kind == "Convolution":
+        nd = _conv_node(kind, 8, 12, 1, extra={9: 100})
+        raw = _conv_raw(nd, 8, 12)
+        x = rand(2, 10, 12, 8, scale=0.5)
+        cout = 12
+    else:
+        nd = node(kind, 1, {0: 6, 1: 4, 3: 2, 4: 1, 5: 1, 6: 10 * 6 * 16,
+                            9: 100})
+        raw = {nd.name: LayerWeights(weight=rand(10, 6, 4, 4, scale=0.2),
+                                     bias=rand(6, scale=0.1))}
+        x = rand(2, 5, 7, 10, scale=0.5)
+        cout = 6
+    raw[nd.name].slope = RNG.uniform(0.05, 0.4, cout).astype(np.float32)
+    close(*run_both(nd, [x], raw))
+
+
+def test_planar_sites_take_the_conv_twin():
+    """With ctx ``planar_convs`` a gated site runs ``conv3x3`` (its twin on
+    the CPU): same result as the XLA-form op in f32."""
+    nd = _conv_node("ConvolutionCat", 8, 12, 2, n_in=3, extra={9: 100})
+    raw = _conv_raw(nd, 8, 12)
+    raw[nd.name].slope = np.full(12, 0.25, np.float32)
+    ins = [rand(2, 16, 20, c, scale=0.5) for c in (3, 1, 4)]
+    j, t = run_both(nd, ins, raw, {"planar_convs": True, "planar_all": True})
+    close(j, t, atol=2e-6)
+    dnd = node("Deconvolution", 1, {0: 4, 1: 4, 3: 2, 4: 1, 5: 1,
+                                    6: 12 * 4 * 16})
+    draw = {dnd.name: LayerWeights(weight=rand(12, 4, 4, 4, scale=0.2),
+                                   bias=rand(4, scale=0.1))}
+    j, t = run_both(dnd, [rand(2, 5, 7, 12)], draw,
+                    {"planar_convs": True, "planar_all": True})
+    close(j, t, atol=2e-6)

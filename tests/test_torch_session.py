@@ -130,12 +130,12 @@ def test_unported_modes_raise(model_dir):
         RIFE(str(model_dir), device="cpu", tta_temporal_mode=True)
     with pytest.raises(NotImplementedError, match="A10"):
         RIFE(str(model_dir), device="cpu", uhd_mode=True)
-    v23 = model_dir.parent / "rife-v2.3"
-    v23.mkdir(exist_ok=True)
+    v1 = model_dir.parent / "rife-anime"
+    v1.mkdir(exist_ok=True)
     for net in ("flownet", "contextnet", "fusionnet"):
-        (v23 / f"{net}.param").write_text((model_dir / "flownet.param").read_text())
+        (v1 / f"{net}.param").write_text((model_dir / "flownet.param").read_text())
     with pytest.raises(NotImplementedError, match="A9"):
-        RIFE(str(v23), device="cpu")
+        RIFE(str(v1), device="cpu")
 
 
 def test_cuda_without_card_raises(model_dir, monkeypatch):

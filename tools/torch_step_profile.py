@@ -1,12 +1,14 @@
 """Where the time of one rife_tpu_torch step goes on the card.
 
-Runs the plain 2x bf16 step of the v4.6-architecture graph (in-repo
-reconstruction, synthetic weights) at 1080p, B=8 by default, under
-``torch.profiler`` and prints: the step's wall time, the summed device time
-of its kernels, the device's idle share over the profiled window, and the
-kernels ranked by device time.  Needs one NVIDIA GPU.
+Runs the plain 2x bf16 step of the v4.6-architecture graph or the
+v2.3-architecture graphs (in-repo reconstructions, synthetic weights) at
+1080p, B=8 by default, under ``torch.profiler`` and prints: the step's wall
+time, the summed device time of its kernels, the device's idle share over
+the profiled window, and the kernels ranked by device time.  Needs one
+NVIDIA GPU.
 
-Run: python tools/torch_step_profile.py [B] [STEPS] [--table PATH]
+Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3]
+     [--table PATH]
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("batch", type=int, nargs="?", default=8)
     ap.add_argument("steps", type=int, nargs="?", default=3)
+    ap.add_argument("--model", choices=("v4.6", "v2.3"), default="v4.6")
     ap.add_argument("--table", type=Path, help="write the full table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -36,9 +39,16 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     from rife_tpu_torch import RIFE
-    from rife_tpu_torch.models.v46_arch import LABEL, write_flownet_param
 
-    model_dir = write_flownet_param(ROOT / "rife_tpu_torch" / "_build" / "models")
+    models = ROOT / "rife_tpu_torch" / "_build" / "models"
+    if args.model == "v2.3":
+        from rife_tpu_torch.models.v23_arch import LABEL, write_v23_params
+
+        model_dir = write_v23_params(models)
+    else:
+        from rife_tpu_torch.models.v46_arch import LABEL, write_flownet_param
+
+        model_dir = write_flownet_param(models)
     sess = RIFE(str(model_dir), device="cuda")
     b, h, w = args.batch, 1080, 1920
     rng = np.random.default_rng(0)
