@@ -2,16 +2,20 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives ``rife_tpu_torch`` on one card, through the entry points a user calls
-(``RIFE(...).process_batch`` / ``process_batch_device``), on two paths at
+(``RIFE(...).process_batch`` / ``process_batch_device``), on six paths at
 full width: the v4.6-architecture graph and the v2.3-architecture graphs
-(in-repo reconstructions, synthetic weights):
+(in-repo reconstructions, synthetic weights), each plain, with ``fuse_ds2``
+and with ``-x -z`` TTA plus ``fuse_ds2``:
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
    in parallel);
 3. holds each kernel against its plain PyTorch twin on the card, in bf16 and
    f32, and times both with CUDA events: the three u8 pair warps at B=2,
-   1088x1920 (plus an unaligned shape); ``warp_feat`` at the v2.3
+   1088x1920 (plus an unaligned shape); ``warp_ds2`` (K3) at B=2 1088x1920,
+   the transposed 1920x1088 and an unaligned shape, timed beside the unfused
+   form the graph runs without the switch (the ``warp_pair`` kernel, then
+   ``resize2d``); ``warp_feat`` at the v2.3
    contextnet's four feature warps of a 1080p B=8 step (C=32..256, the batch
    of 16 both frames make), an odd C and an unaligned size, raw flow and
    absolute positions; ``warp_u8`` at the fusionnet's frame warps; and
@@ -27,8 +31,16 @@ full width: the v4.6-architecture graph and the v2.3-architecture graphs
    bar, launches equal to ``plan.kernel_sites``; (b) bf16 1080p B=8, PSNR of
    its first two frames against f32 on the CPU, frames/s, and launch counts
    per step equal to ``plan.kernel_sites`` (printed beside them);
-6. prints the kernels' JSON line, the nvidia-smi line and, last, the
-   ``{"ok": true, "device": ...}`` line.
+6. runs both slices with ``fuse_ds2=True``: f32 on the card against the CPU
+   at the sizes of 4a and 5a, then bf16 1080p B=8 frames/s beside the
+   unfused figure; launches equal ``plan.kernel_sites``, ``warp_ds2`` 2 per
+   step;
+7. runs both slices with ``-x -z`` and ``fuse_ds2=True``: f32 on the card
+   against the CPU at 256x448 B=1 (for v2.3 a size at which the fusionnet's
+   deconv sites reach ``conv3x3``), then bf16 1080p B=2 frames/s; launches
+   equal ``plan.kernel_sites``;
+8. prints the kernels' JSON line (launches of each path's counted run), the
+   nvidia-smi line and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
 card, or without the rest of the repository beside it, it exits non-zero.
@@ -50,9 +62,12 @@ import torch
 ROOT = Path(__file__).resolve().parent
 MAIN_SHAPE = (2, 1088, 1920)
 ODD_SHAPE = (2, 52, 196)
+DS2_SHAPES = [MAIN_SHAPE, (2, 1920, 1088), ODD_SHAPE]
 V46_CHECK = (1, 256, 448)
 V23_CHECK = (2, 544, 960)
+TTA_CHECK = (1, 256, 448)
 BENCH = (8, 1080, 1920)
+TTA_BATCH = 2
 BENCH_STEPS = 5
 V23_PSNR_ITEMS = 2
 # v2.3 contextnet feature warps of a 1080p B=8 step: (C, H, W) at batch 16
@@ -67,6 +82,7 @@ KERNELS = {
     "warp_render": ("warp.cu", f"{WARP_SRC}:1304", []),
     "warp_feat": ("warp.cu", f"{WARP_SRC}:146", [f"{WARP_SRC}:515"]),
     "warp_u8": ("warp.cu", f"{WARP_SRC}:2321", []),
+    "warp_ds2": ("warp.cu", f"{WARP_SRC}:2052", [f"{WARP_SRC}:1899"]),
     "conv3x3": ("conv.cu", f"{CONV_SRC}:309",
                 [f"{CONV_SRC}:485", f"{CONV_SRC}:97", f"{CONV_SRC}:190"]),
 }
@@ -74,6 +90,15 @@ PAIR_KERNELS = {  # name: (wrapper, twin)
     "warp_ds4_pair": ("warp_ds4_pair", "warp_ds4_pair_ref"),
     "warp_pair": ("warp_pair", "warp_pair_ref"),
     "warp_render": ("warp_render", "warp_render_ref"),
+}
+
+
+# launches per step of the fused plain paths at 1080p
+FUSED_PER_STEP = {
+    "v4.6": {"warp_ds4_pair": 1, "warp_pair": 1, "warp_ds2": 2,
+             "warp_render": 1},
+    "v2.3": {"conv3x3": 11, "warp_feat": 4, "warp_u8": 2, "warp_pair": 1,
+             "warp_ds2": 2, "warp_ds4_pair": 1},
 }
 
 
@@ -217,6 +242,36 @@ def phase_pair_kernels(device, rng, report):
     torch.cuda.empty_cache()
 
 
+def phase_warp_ds2(device, rng, report):
+    """``warp_ds2`` (K3) at DS2_SHAPES in bf16 and f32; at MAIN_SHAPE bf16 it
+    is timed against its twin, and a block entry's two fused warps against
+    the unfused form on the same inputs (one ``warp_pair`` launch, then
+    ``resize2d`` of each warp)."""
+    from rife_tpu_torch.ops import warp as W
+    from rife_tpu_torch.ops.torch_ops import resize2d
+
+    for dtype in (torch.bfloat16, torch.float32):
+        for shape in DS2_SHAPES:
+            ia, fa, ib, fb, _ = kernel_inputs(rng, shape, dtype, device)
+            main = shape == MAIN_SHAPE and dtype == torch.bfloat16
+            check_pair(report, "warp_ds2", W.warp_ds2, W.warp_ds2_ref,
+                       (ia, fa), dtype, f"B,H,W={shape}", main)
+            if main:
+                h, w = shape[1], shape[2]
+                fused = time_ms(lambda: (W.warp_ds2(ia, fa),
+                                         W.warp_ds2(ib, fb)))
+                unfused = time_ms(lambda: [
+                    resize2d(y, h // 2, w // 2)
+                    for y in W.warp_pair(ia, fa, ib, fb)])
+                report["warp_ds2"].update(fused_pair_ms=fused,
+                                          unfused_pair_ms=unfused)
+                print(f"  two warps + 1/2 downsample {shape}: fused 2x "
+                      f"warp_ds2 {fused:.4f} ms, unfused warp_pair + 2x "
+                      f"resize2d {unfused:.4f} ms (CUDA events)", flush=True)
+            del ia, fa, ib, fb
+    torch.cuda.empty_cache()
+
+
 def phase_single_warp(device, rng, report):
     """``warp_feat`` (K1/K2) at the contextnet's feature-warp shapes of one
     1080p B=8 step (timed in f32 and bf16; the bf16 sum, one step's, goes to
@@ -329,11 +384,11 @@ def read_counts():
     return {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
 
 
-def bench(sess, device, label, card):
-    """bf16 1080p B=8 through ``process_batch_device`` on device-resident
-    u8 frames; returns (launches over the counted steps, first frames, the
-    u8 inputs)."""
-    b, h, w = BENCH
+def bench(sess, device, label, card, b=BENCH[0]):
+    """bf16 1080p B=b (default 8) through ``process_batch_device`` on
+    device-resident u8 frames; returns (launches over the counted steps,
+    first frames, the u8 inputs, frames/s)."""
+    _, h, w = BENCH
     f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
     d0 = torch.from_numpy(f0).to(device)
     d1 = torch.from_numpy(f1).to(device)
@@ -354,10 +409,10 @@ def bench(sess, device, label, card):
     require(float(res.std()) > 1.0, "constant output frame")
     fps = b * BENCH_STEPS / dt
     peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
-    print(f"fps: {fps:.3f} frames/s, rife_tpu_torch plain 2x bf16 {h}x{w} "
+    print(f"fps: {fps:.3f} frames/s, rife_tpu_torch 2x bf16 {h}x{w} "
           f"B={b} ({BENCH_STEPS} steps, device-resident u8 in/out), {label}; "
           f"card {card}; peak memory {peak:.2f} GiB", flush=True)
-    return launches, res, (f0, f1)
+    return launches, res, (f0, f1), fps
 
 
 def phase_v46(device, model_dir, rng, card):
@@ -381,7 +436,7 @@ def phase_v46(device, model_dir, rng, card):
     require(p >= 30.0, f"bf16 v4.6 slice PSNR {p:.2f} dB < 30 dB")
 
     # (b) bf16 1080p B=8 through the main path, launches counted
-    launches, _, _ = bench(sess, device, LABEL, card)
+    launches, _, _, fps = bench(sess, device, f"{LABEL}, plain", card)
     per_step = kernel_sites(sess, BENCH[1], BENCH[2])
     print(f"v4.6 launches over {BENCH_STEPS} steps: {launches}; expected "
           f"per step: {per_step}", flush=True)
@@ -390,7 +445,7 @@ def phase_v46(device, model_dir, rng, card):
             "v4.6 launch counts differ from plan.kernel_sites")
     del sess
     torch.cuda.empty_cache()
-    return launches
+    return launches, fps
 
 
 def phase_v23(device, model_dir, rng, card, sess):
@@ -420,7 +475,8 @@ def phase_v23(device, model_dir, rng, card, sess):
 
     # (b) bf16 1080p B=8: frames/s, launches, PSNR of the first frames
     # against f32 on the CPU
-    launches, res, (f0, f1) = bench(sess, device, LABEL, card)
+    launches, res, (f0, f1), fps = bench(sess, device, f"{LABEL}, plain",
+                                         card)
     per_step = kernel_sites(sess, BENCH[1], BENCH[2])
     print(f"v2.3 launches over {BENCH_STEPS} steps: {launches}; expected "
           f"per step from the graphs and gates: {per_step}", flush=True)
@@ -434,7 +490,68 @@ def phase_v23(device, model_dir, rng, card, sess):
           f"(first {n} frames of the B={BENCH[0]} step): PSNR {p:.2f} dB",
           flush=True)
     require(p >= 30.0, f"bf16 v2.3 slice PSNR {p:.2f} dB < 30 dB")
+    return launches, fps
+
+
+def check_on_card(name, model_dir, device, rng, shape, **modes):
+    """The session with ``modes`` in f32 on the card against the same
+    session on the CPU (u8 <= 1, >= 99.9% exact), launches of the card's
+    step equal to ``plan.kernel_sites``; returns those launches."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+
+    b, h, w = shape
+    f0, f1 = smooth_frames(rng, b, h, w)
+    ts = np.full(b, 0.5, np.float32)
+    t0 = time.perf_counter()
+    want = RIFE(str(model_dir), device="cpu", **modes).process_batch(f0, f1,
+                                                                      ts)
+    print(f"{name}: CPU reference {b}x{h}x{w} in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    card32 = RIFE(str(model_dir), device=device, dtype=torch.float32,
+                  **modes)
+    reset_counts()
+    got = card32.process_batch(f0, f1, ts)
+    launches = read_counts()
+    expected = kernel_sites(card32, h, w)
+    print(f"{name} f32 {h}x{w} launches {launches}, expected {expected}",
+          flush=True)
+    require(launches == expected, f"{name}: launches differ from the plan")
+    assert_u8_close(got, want, f"{name} f32 cuda vs cpu {h}x{w}")
+    del card32
+    torch.cuda.empty_cache()
     return launches
+
+
+def phase_modes(device, name, model_dir, label, rng, card, check_shape, b,
+                expect_per_step=None, **modes):
+    """One path with ``modes`` (``fuse_ds2``, TTA): f32 card vs CPU at
+    ``check_shape``, then bf16 1080p B=b with its launches counted over the
+    bench steps and held to ``plan.kernel_sites`` (and, where given, to
+    ``expect_per_step``); returns (launches, frames/s)."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+
+    checked = check_on_card(name, model_dir, device, rng, check_shape,
+                            **modes)
+    require(checked.get("warp_ds2", 0) > 0, f"{name}: K3 not launched")
+    if name.startswith("v2.3"):
+        require(checked.get("conv3x3", 0) > 0,
+                f"{name}: no conv3x3 site at {check_shape}")
+    sess = RIFE(str(model_dir), device=device, **modes)
+    launches, _, _, fps = bench(sess, device, f"{label}, {name}", card, b)
+    per_step = kernel_sites(sess, BENCH[1], BENCH[2])
+    print(f"{name} launches over {BENCH_STEPS} steps: {launches}; expected "
+          f"per step: {per_step}", flush=True)
+    require(launches == {k: v * BENCH_STEPS for k, v in per_step.items()},
+            f"{name}: launch counts differ from plan.kernel_sites")
+    if expect_per_step is not None:
+        require(per_step == expect_per_step,
+                f"{name}: per-step launches {per_step}, expected "
+                f"{expect_per_step}")
+    del sess
+    torch.cuda.empty_cache()
+    return launches, fps
 
 
 def main() -> int:
@@ -444,6 +561,7 @@ def main() -> int:
         return 1
     from rife_tpu_torch import RIFE
     from rife_tpu_torch.engine.plan import conv_sites
+    from rife_tpu_torch.models import v23_arch, v46_arch
     from rife_tpu_torch.models.v23_arch import write_v23_params
     from rife_tpu_torch.models.v46_arch import write_flownet_param
     from rife_tpu_torch.native import build
@@ -480,10 +598,28 @@ def main() -> int:
     torch.manual_seed(20261016)
     report = {}
     phase_pair_kernels(device, rng, report)
+    phase_warp_ds2(device, rng, report)
     phase_single_warp(device, rng, report)
     phase_conv(device, rng, report, sites)
-    by_path = {"v4.6": phase_v46(device, v46_dir, rng, card),
-               "v2.3": phase_v23(device, v23_dir, rng, card, v23)}
+    runs = {"v4.6": phase_v46(device, v46_dir, rng, card),
+            "v2.3": phase_v23(device, v23_dir, rng, card, v23)}
+    del v23
+    torch.cuda.empty_cache()
+    fused = {"fuse_ds2": True}
+    tta = {"tta_mode": True, "tta_temporal_mode": True, **fused}
+    for model, mdir, label, check in (
+            ("v4.6", v46_dir, v46_arch.LABEL, V46_CHECK),
+            ("v2.3", v23_dir, v23_arch.LABEL, V23_CHECK)):
+        name = f"{model} fuse_ds2"
+        runs[name] = phase_modes(device, name, mdir, label, rng, card, check,
+                                 BENCH[0], FUSED_PER_STEP[model], **fused)
+        print(f"{model} bf16 1080p B={BENCH[0]}: fuse_ds2 "
+              f"{runs[name][1]:.3f} frames/s, unfused {runs[model][1]:.3f} "
+              f"frames/s; card {card}", flush=True)
+        name = f"{model} -x -z fuse_ds2"
+        runs[name] = phase_modes(device, name, mdir, label, rng, card,
+                                 TTA_CHECK, TTA_BATCH, **tta)
+    by_path = {path: launches for path, (launches, _) in runs.items()}
 
     kernels = []
     for name, (src, replaces, covers) in KERNELS.items():
@@ -500,8 +636,8 @@ def main() -> int:
             "max_abs_err": report[name]["max_abs_err"],
             "ms": report[name]["ms"],
             "plain_ms": report[name]["plain_ms"],
-            **({"cudnn_bf16_ms": report[name]["cudnn_bf16_ms"]}
-               if "cudnn_bf16_ms" in report[name] else {}),
+            **{k: v for k, v in report[name].items()
+               if k not in ("max_abs_err", "ms", "plain_ms")},
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

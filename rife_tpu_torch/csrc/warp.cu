@@ -1,5 +1,5 @@
 // Hand-written Hopper (sm_90a) kernels for the warps of the rife-v4.6 and
-// rife-v2.3 plain 2x paths.  Plain C interface, loaded with ctypes by
+// rife-v2.3 paths.  Plain C interface, loaded with ctypes by
 // rife_tpu_torch/native/build.py; the PyTorch wrappers and plain twins are in
 // rife_tpu_torch/ops/warp.py.
 //
@@ -23,6 +23,9 @@
 //                       _warp_pallas_u8_impl_any (K4)  [unpaired rife.Warp of a
 //                       frame copy, v2 fusionnet]; raw flow or absolute positions
 //                       [rife.WarpDs4 off the pair kernel]
+//   rife_warp_ds2       _warp_pallas_u8_ds2_impl -> _warp_kernel_u8_slab_ds2 (K3):
+//                       u8-origin warp of a frame copy fused with the exact
+//                       half-pixel 1/2 downsample         [rife.WarpDs2, fuse_ds2]
 //
 // What bounds them on the H100: a backward warp is a data-dependent gather at
 // about 2 FLOP per byte, so memory and latency bound it and the tensor cores
@@ -30,7 +33,11 @@
 // (4 B in bf16), gathers 4 corners x 3 planes (24 B in bf16, at positions the
 // flow decides) and writes 3 values (6 B); the ds4 form gathers 4 taps of that
 // per 1/4-resolution pixel.  At 1088x1920, B=8, bf16 that is ~0.7 GB of traffic
-// per pair launch, ~0.2 ms at the 3.35 TB/s peak, if the gathers hit.
+// per pair launch, ~0.2 ms at the 3.35 TB/s peak, if the gathers hit.  The ds2
+// form gathers as much as a full-resolution warp (the 1/2 downsample reads
+// every warped pixel) but writes a quarter of it and no full-resolution
+// intermediate: per half-resolution pixel 4 x 4 B of flow, 4 x 12 corner
+// gathers and 6 B of output in bf16.
 //
 // What the design does about it: one thread per output pixel handles every
 // channel, so the corner indices and weights are computed once and reused for
@@ -218,6 +225,45 @@ __global__ void warp_ds4_pair_kernel(const T* __restrict__ img_a, const T* __res
   }
 }
 
+// K3: output pixel (m, n) of the 1/2-resolution grid averages the warps of the
+// four full-resolution pixels (2m+pi, 2n+pj), phase p = 2*pi + pj, each sampled
+// at pixel + flow(pixel) and cast to the storage dtype; then v0/2 + v2/2 and
+// v1/2 + v3/2 (rows), then their 0.5/0.5 average (columns), in that dtype.
+// None of the Pallas kernel's machinery carries over: no u8-quad words, no
+// slabs, no per-(band, window) ranges, no phase de-interleaved operands -- the
+// thread reads the four phase positions' flow itself and gathers directly.
+template <typename T>
+__global__ void warp_ds2_kernel(const T* __restrict__ img, const T* __restrict__ flow,
+                                T* __restrict__ out, int h, int w) {
+  int ho = h >> 1, wo = w >> 1;
+  int n = blockIdx.x * blockDim.x + threadIdx.x;
+  int m = blockIdx.y * blockDim.y + threadIdx.y;
+  if (n >= wo || m >= ho) return;
+  int b = blockIdx.z;
+  size_t plane = static_cast<size_t>(h) * w;
+  size_t plane_o = static_cast<size_t>(ho) * wo;
+  const T* src = img + 3 * plane * b;
+  const T* fl = flow + 2 * plane * b;
+  Corners k[4];
+#pragma unroll
+  for (int pi = 0; pi < 2; ++pi)
+#pragma unroll
+    for (int pj = 0; pj < 2; ++pj)
+      k[2 * pi + pj] = flow_corners(fl, plane, 2 * n + pj, 2 * m + pi, h, w);
+  T* dst = out + 3 * plane_o * b + static_cast<size_t>(m) * wo + n;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const T* s = src + c * plane;
+    float v[4];
+#pragma unroll
+    for (int p = 0; p < 4; ++p) v[p] = q<T>(sample(s, k[p]));
+    float u0 = q<T>(__fadd_rn(q<T>(__fmul_rn(v[0], 0.5f)), q<T>(__fmul_rn(v[2], 0.5f))));
+    float u1 = q<T>(__fadd_rn(q<T>(__fmul_rn(v[1], 0.5f)), q<T>(__fmul_rn(v[3], 0.5f))));
+    dst[c * plane_o] =
+        store<T>(__fadd_rn(q<T>(__fmul_rn(u0, 0.5f)), q<T>(__fmul_rn(u1, 0.5f))));
+  }
+}
+
 // K1/K2: ((v00*w00 + v01*w01) + v10*w10) + v11*w11 in f32 -- the Pallas
 // kernels' order where the four corners fall in one lane tile
 template <typename T>
@@ -345,6 +391,26 @@ int rife_warp_ds4_pair(const void* img_a, const void* flow_a, const void* img_b,
         static_cast<const T*>(img_a), static_cast<const T*>(flow_a),
         static_cast<const T*>(img_b), static_cast<const T*>(flow_b), static_cast<T*>(out_a),
         static_cast<T*>(out_b), h, w);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// img (B,3,H,W), flow (B,2,H,W), out (B,3,H/2,W/2); H and W even.
+int rife_warp_ds2(const void* img, const void* flow, void* out, int batch, int h, int w,
+                  int bf16, void* stream) {
+  if ((h | w) & 1) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid = grid_for(w / 2, h / 2, batch), block(kBx, kBy);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    using T = __nv_bfloat16;
+    warp_ds2_kernel<T><<<grid, block, 0, s>>>(static_cast<const T*>(img),
+                                              static_cast<const T*>(flow), static_cast<T*>(out),
+                                              h, w);
+  } else {
+    using T = float;
+    warp_ds2_kernel<T><<<grid, block, 0, s>>>(static_cast<const T*>(img),
+                                              static_cast<const T*>(flow), static_cast<T*>(out),
+                                              h, w);
   }
   return static_cast<int>(cudaGetLastError());
 }

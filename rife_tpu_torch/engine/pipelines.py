@@ -1,6 +1,14 @@
-"""Forward pipelines, plain branches (port of the no-TTA, no-UHD branches of
-``rife_tpu/engine/pipelines.py``: ``forward_v4`` and the v2 path of
-``forward_v1v2``)."""
+"""Forward pipelines (port of ``rife_tpu/engine/pipelines.py``: ``forward_v4``
+and the v2 path of ``forward_v1v2``, plain and with the ``-x``/``-z`` TTA
+modes; UHD and the v1 family are not ported).
+
+Spatial TTA (``-x``) runs the 8 dihedral views as two batch groups of 4B,
+canonical (H,W) and transposed (W,H) (``frame.expand_views8``); temporal TTA
+(``-z``) runs every net a second time on the swapped pair and merges flows
+and renders (``frame.flow_temporal_avg_*``, ``frame.out_temporal_avg``).
+Only the plain v4 branch asks the render for planes; the TTA renders come
+out NCHW, as in the JAX package (``planar_out=False`` there).
+"""
 
 from __future__ import annotations
 
@@ -8,39 +16,153 @@ import torch
 
 from ..ops import frame
 
+V4_TAPS = ("flow0", "flow1", "flow2", "flow3")
+CONTEXT_FEATS = ("f1", "f2", "f3", "f4")
+
+
+def _flatten(g: torch.Tensor) -> torch.Tensor:
+    """(B,4,C,H,W) view group -> (4B,C,H,W)."""
+    return g.reshape(-1, *g.shape[2:])
+
+
+def _unflatten(x: torch.Tensor, b: int) -> torch.Tensor:
+    return x.reshape(b, -1, *x.shape[1:])
+
+
+# ---------------------------------------------------------------------------
+# v4
+# ---------------------------------------------------------------------------
+
+def _v4_flow_pyramid(ex, weights, i0, i1, tplane, pinned):
+    """Extract tap ``len(pinned)`` with the earlier taps pinned (the
+    Executor stops at provided blobs, as ncnn's Extractor does)."""
+    inputs = {"in0": i0, "in1": i1, "in2": tplane, **pinned}
+    return ex.run(inputs, [V4_TAPS[len(pinned)]], {"w": weights})[0]
+
+
+def _v4_out(ex, weights, i0, i1, tplane, pinned, planar_out=False):
+    ctx = {"w": weights}
+    if planar_out:
+        ctx["planar_outputs"] = frozenset(("out0",))
+    inputs = {"in0": i0, "in1": i1, "in2": tplane, **pinned}
+    return ex.run(inputs, ["out0"], ctx)[0]
+
 
 def forward_v4(ex, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
                timestep: torch.Tensor, pad_h: int, pad_w: int,
-               dtype: torch.dtype) -> torch.Tensor:
+               dtype: torch.dtype, tta: bool = False,
+               temporal: bool = False) -> torch.Tensor:
     """u8 frames (B,H,W,3) + per-item timestep (B,) -> u8 frame (B,H,W,3).
 
-    With the fused render node (``ex.render_planar``) ``out0`` comes back as
-    (B,H,3,W) planes and is finished by ``frame.postprocess_planar``."""
+    Plain: with the fused render node (``ex.render_planar``) ``out0`` comes
+    back as (B,H,3,W) planes and is finished by ``frame.postprocess_planar``.
+    """
     h, w = in0_u8.shape[1], in0_u8.shape[2]
     b = in0_u8.shape[0]
     img0 = frame.preprocess(in0_u8, pad_h, pad_w, dtype)
     img1 = frame.preprocess(in1_u8, pad_h, pad_w, dtype)
     t = frame.timestep_plane(timestep, b, pad_h, pad_w, dtype)
-    ctx = {"w": weights}
-    planar = getattr(ex, "render_planar", False)
-    if planar:
-        ctx["planar_outputs"] = frozenset(("out0",))
-    out = ex.run({"in0": img0, "in1": img1, "in2": t}, ["out0"], ctx)[0]
-    if planar:
-        return frame.postprocess_planar(out, h, w)
-    return frame.postprocess(out, h, w)
+
+    if not tta and not temporal:
+        planar = getattr(ex, "render_planar", False)
+        out = _v4_out(ex, weights, img0, img1, t, {}, planar_out=planar)
+        if planar:
+            return frame.postprocess_planar(out, h, w)
+        return frame.postprocess(out, h, w)
+
+    if not tta:
+        # temporal only: tap by tap, forward and reverse, merging each level
+        t_rev = frame.timestep_plane(1.0 - timestep, b, pad_h, pad_w, dtype)
+        pinned, pinned_rev = {}, {}
+        for tap in V4_TAPS:
+            f = _v4_flow_pyramid(ex, weights, img0, img1, t, pinned)
+            fr = _v4_flow_pyramid(ex, weights, img1, img0, t_rev, pinned_rev)
+            pinned[tap], pinned_rev[tap] = frame.flow_temporal_avg_v4(f, fr)
+        out = _v4_out(ex, weights, img0, img1, t, pinned)
+        out_rev = _v4_out(ex, weights, img1, img0, t_rev, pinned_rev)
+        return frame.postprocess(frame.out_temporal_avg(out, out_rev), h, w)
+
+    # spatial TTA (with or without temporal): two view groups of 4B
+    g0a, g0b = (_flatten(g) for g in frame.expand_views8(img0))
+    g1a, g1b = (_flatten(g) for g in frame.expand_views8(img1))
+    t4 = timestep.repeat_interleave(4)
+    # the transposed group's plane is (pad_w, pad_h)
+    groups = [(g0a, g1a, frame.timestep_plane(t4, 4 * b, pad_h, pad_w, dtype)),
+              (g0b, g1b, frame.timestep_plane(t4, 4 * b, pad_w, pad_h, dtype))]
+    rev_groups = [
+        (g1a, g0a, frame.timestep_plane(1.0 - t4, 4 * b, pad_h, pad_w, dtype)),
+        (g1b, g0b, frame.timestep_plane(1.0 - t4, 4 * b, pad_w, pad_h, dtype)),
+    ] if temporal else []
+    pins, pins_rev = [{}, {}], [{}, {}]
+
+    def taps(runs, pinned):
+        return [_unflatten(_v4_flow_pyramid(ex, weights, *run, p), b)
+                for run, p in zip(runs, pinned)]
+
+    def pin(pinned, tap, fa, fb):
+        for p, f in zip(pinned, frame.flow_views_avg(fa, fb, n_pairs=2,
+                                                     has_mask=True)):
+            p[tap] = _flatten(f)
+
+    for tap in V4_TAPS:
+        fa, fb = taps(groups, pins)
+        if temporal:
+            fra, frb = taps(rev_groups, pins_rev)
+            fa, fra = frame.flow_temporal_avg_v4(fa, fra)
+            fb, frb = frame.flow_temporal_avg_v4(fb, frb)
+            pin(pins_rev, tap, fra, frb)
+        pin(pins, tap, fa, fb)
+
+    outs = [_v4_out(ex, weights, *run, p) for run, p in zip(groups, pins)]
+    if temporal:
+        outs = [frame.out_temporal_avg(o, _v4_out(ex, weights, *run, p))
+                for o, run, p in zip(outs, rev_groups, pins_rev)]
+    merged = frame.merge_views8_mean(*(_unflatten(o, b) for o in outs))
+    return frame.postprocess(merged, h, w)
+
+
+# ---------------------------------------------------------------------------
+# v2
+# ---------------------------------------------------------------------------
+
+def _v2_render(run, img0, img1, flow, flow_rev):
+    """Contextnet + fusionnet on one geometry (``_v1v2_render``): both
+    context extractions ride one batched contextnet run over
+    ``cat([img0, img1])`` (same input slot ``flow.0``, same subgraph); the
+    fusionnet takes the frames, the flow and the features as inputs
+    ``"3".."10"`` (frame 0's f1..f4, then frame 1's).  With a reverse flow
+    (``-z``) the fusionnet also runs on the swapped pair and the two renders
+    are averaged."""
+    b = img0.shape[0]
+    feats = run("contextnet", {
+        "input.1": torch.cat([img0, img1]),
+        "flow.0": torch.cat([flow[:, 0:2], flow[:, 2:4]]),
+    }, list(CONTEXT_FEATS))
+    ctx0, ctx1 = [f[:b] for f in feats], [f[b:] for f in feats]
+
+    def fusion(i0, i1, fl, c0, c1):
+        inputs = {"img0": i0, "img1": i1, "flow": fl}
+        for i, f in enumerate(c0 + c1):
+            inputs[str(3 + i)] = f
+        return run("fusionnet", inputs, ["output"])[0]
+
+    out = fusion(img0, img1, flow, ctx0, ctx1)
+    if flow_rev is not None:
+        out = frame.out_temporal_avg(
+            out, fusion(img1, img0, flow_rev, ctx1, ctx0))
+    return out
 
 
 def forward_v2(nets, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
-               pad_h: int, pad_w: int, dtype: torch.dtype) -> torch.Tensor:
+               pad_h: int, pad_w: int, dtype: torch.dtype, tta: bool = False,
+               temporal: bool = False) -> torch.Tensor:
     """u8 frames (B,H,W,3) -> the u8 midpoint frame (B,H,W,3), v2 family.
 
-    ``flownet`` gives the flow at half resolution (B,4,H/2,W/2); its two
-    halves feed ONE batched ``contextnet`` run over ``cat([img0, img1])``
-    (both extractions use input slot ``flow.0`` and the same subgraph,
-    ``pipelines.py:119-131``); ``fusionnet`` takes the frames, the flow and
-    the context features as inputs ``"3".."10"`` (frame 0's f1..f4, then
-    frame 1's)."""
+    ``flownet`` gives the flow at half resolution (B,4,H/2,W/2); with
+    ``-z`` it also runs on the swapped pair and ``flow_temporal_avg_v2``
+    merges the two; with ``-x`` each view group runs as a batch of 4B
+    (contextnet 8B) and ``flow_views_avg`` merges the 8 views' flows before
+    the render."""
     h, w = in0_u8.shape[1], in0_u8.shape[2]
     b = in0_u8.shape[0]
     img0 = frame.preprocess(in0_u8, pad_h, pad_w, dtype)
@@ -49,13 +171,31 @@ def forward_v2(nets, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
     def run(net, inputs, outputs):
         return nets[net].run(inputs, outputs, {"w": weights[net]})
 
-    flow = run("flownet", {"input0": img0, "input1": img1}, ["flow"])[0]
-    feats = run("contextnet", {
-        "input.1": torch.cat([img0, img1]),
-        "flow.0": torch.cat([flow[:, 0:2], flow[:, 2:4]]),
-    }, ["f1", "f2", "f3", "f4"])
-    inputs = {"img0": img0, "img1": img1, "flow": flow}
-    for i, f in enumerate([f[:b] for f in feats] + [f[b:] for f in feats]):
-        inputs[str(3 + i)] = f
-    out = run("fusionnet", inputs, ["output"])[0]
-    return frame.postprocess(out, h, w)
+    def flows(i0, i1):
+        flow = run("flownet", {"input0": i0, "input1": i1}, ["flow"])[0]
+        if not temporal:
+            return flow, None
+        flow_rev = run("flownet", {"input0": i1, "input1": i0}, ["flow"])[0]
+        return frame.flow_temporal_avg_v2(flow, flow_rev)
+
+    if not tta:
+        out = _v2_render(run, img0, img1, *flows(img0, img1))
+        return frame.postprocess(out, h, w)
+
+    g0a, g0b = (_flatten(g) for g in frame.expand_views8(img0))
+    g1a, g1b = (_flatten(g) for g in frame.expand_views8(img1))
+    groups = [(g0a, g1a), (g0b, g1b)]
+    per_group = [flows(i0, i1) for i0, i1 in groups]
+
+    def views_avg(k):
+        """Consensus of flow k (0 forward, 1 reverse) over both groups."""
+        fa, fb = frame.flow_views_avg(
+            *(_unflatten(f[k], b) for f in per_group), n_pairs=2,
+            has_mask=False)
+        return _flatten(fa), _flatten(fb)
+
+    fwd = views_avg(0)
+    rev = views_avg(1) if temporal else (None, None)
+    outs = [_unflatten(_v2_render(run, i0, i1, f, fr), b)
+            for (i0, i1), f, fr in zip(groups, fwd, rev)]
+    return frame.postprocess(frame.merge_views8_mean(*outs), h, w)

@@ -2,12 +2,14 @@
 rewritten graphs, the blob shapes and the site gates, without running it.
 
 ``kernel_sites(session, h, w)`` walks each net's rewritten graph as the
-pipeline feeds it (``engine/pipelines.py``), propagating (C, H, W) shapes
-through every layer kind the port runs, and applies the dispatch rules of
-``ops/torch_ops.py``: the pair kernels for paired u8-origin warps, the
-single-warp kernel in its u8 or float mode for the rest, and ``conv3x3``
-where the gates of ``ops/conv.py`` take a conv site.  The result, launches
-per kernel per step, does not depend on the batch size.  ``chip_smoke.py``
+pipeline feeds it (``engine/pipelines.py``: every run of the session's TTA
+schedule, in both view geometries), propagating (C, H, W) shapes through
+every layer kind the port runs, and applies the dispatch rules of
+``ops/torch_ops.py``: the pair kernels for paired u8-origin warps, K3 for a
+``rife.WarpDs2`` of a frame copy, the single-warp kernel in its u8 or float
+mode for the rest, and ``conv3x3`` where the gates of ``ops/conv.py`` take a
+conv site.  The result, launches per kernel per step, does not depend on the
+batch size.  ``chip_smoke.py``
 holds the card's launch counters to it, and times ``conv3x3`` at each site
 ``conv_sites`` lists.
 """
@@ -20,6 +22,7 @@ from typing import Dict, List, Tuple
 from rife_tpu.ops import common as C
 
 from ..ops import conv as CV
+from .pipelines import CONTEXT_FEATS, V4_TAPS
 from .session import pad_to
 
 Shape = Tuple[int, int, int]  # (C, H, W) of one batch item
@@ -62,7 +65,8 @@ def _walk(ex, inputs: Dict[str, Shape], outputs):
 
     for idx in g.required_nodes(outputs, list(inputs)):
         node = g.nodes[idx]
-        if node.type == "Input":
+        # the Executor skips a node whose tops are all pinned
+        if node.type == "Input" or all(t in inputs for t in node.tops):
             continue
         ins = [shapes[b] for b in node.bottoms]
         x = ins[0]
@@ -131,6 +135,13 @@ def _walk(ex, inputs: Dict[str, Shape], outputs):
         elif kind == "rife.WarpDs4":
             single(node.bottoms[0], x)
             outs = [(x[0], x[1] // 4, x[2] // 4)]
+        elif kind == "rife.WarpDs2":
+            if x[0] == 3 and node.bottoms[0] in u8 and not (x[1] % 2
+                                                             or x[2] % 2):
+                sites["warp_ds2"] += 1
+            else:
+                single(node.bottoms[0], x)
+            outs = [(x[0], round(x[1] * 0.5), round(x[2] * 0.5))]
         elif kind in ("rife.WarpPair", "rife.WarpDs4Pair"):
             a, fa, b, fb = ins
             ds4 = kind == "rife.WarpDs4Pair"
@@ -161,27 +172,47 @@ def _walk(ex, inputs: Dict[str, Shape], outputs):
 
 def _plan(session, h: int, w: int):
     """(launches per kernel, [(batch factor, conv3x3 site), ...]) of one
-    step; the contextnet runs on both frames at once (batch factor 2)."""
+    step.  The batch factor is the run's batch over the session's: 4 for a
+    spatial-TTA view group, twice that for the contextnet, which runs on
+    both frames at once.  Spatial TTA runs each net once per view geometry,
+    canonical and transposed; temporal TTA runs the flownet (v4: every tap
+    and the render; v2: the flownet and the fusionnet) once more, on the
+    swapped pair."""
     ph, pw = pad_to(h), pad_to(w)
-    img = (3, ph, pw)
+    tta, temporal = session.tta_mode, session.tta_temporal_mode
+    geoms = [(ph, pw), (pw, ph)] if tta else [(ph, pw)]
+    views = 4 if tta else 1
+    sweeps = 2 if temporal else 1
     ex = session.executors
-    if session.model.family == "v4":
-        sites, _, convs = _walk(ex["flownet"], {"in0": img, "in1": img,
-                                                "in2": (1, ph, pw)}, ["out0"])
-        return sites, [(1, c) for c in convs]
-    sites, shapes, convs = _walk(ex["flownet"], {"input0": img, "input1": img},
-                                 ["flow"])
-    flow = shapes["flow"]
-    feat_names = ["f1", "f2", "f3", "f4"]
-    more, shapes, ctx_convs = _walk(ex["contextnet"], {
-        "input.1": img, "flow.0": (2, *flow[1:])}, feat_names)
-    feats = {str(3 + i + k): shapes[f] for k in (0, 4)
-             for i, f in enumerate(feat_names)}
-    fus, _, fus_convs = _walk(ex["fusionnet"], {
-        "img0": img, "img1": img, "flow": flow, **feats}, ["output"])
-    return (sites + more + fus,
-            [(1, c) for c in convs] + [(2, c) for c in ctx_convs]
-            + [(1, c) for c in fus_convs])
+    sites: Counter = Counter()
+    convs: List[tuple] = []
+
+    def walk(net, inputs, outputs, factor, runs=1):
+        more, shapes, found = _walk(ex[net], inputs, outputs)
+        for _ in range(runs):
+            sites.update(more)
+            convs.extend((factor, c) for c in found)
+        return shapes
+
+    for gh, gw in geoms:
+        img = (3, gh, gw)
+        if session.model.family == "v4":
+            feed = {"in0": img, "in1": img, "in2": (1, gh, gw)}
+            if tta or temporal:  # tap by tap, the earlier taps pinned
+                for tap in V4_TAPS:
+                    feed[tap] = walk("flownet", feed, [tap], views,
+                                     sweeps)[tap]
+            walk("flownet", feed, ["out0"], views, sweeps)
+            continue
+        flow = walk("flownet", {"input0": img, "input1": img}, ["flow"],
+                    views, sweeps)["flow"]
+        shapes = walk("contextnet", {"input.1": img, "flow.0": (2, *flow[1:])},
+                      list(CONTEXT_FEATS), 2 * views)
+        feats = {str(3 + i + k): shapes[f] for k in (0, 4)
+                 for i, f in enumerate(CONTEXT_FEATS)}
+        walk("fusionnet", {"img0": img, "img1": img, "flow": flow, **feats},
+             ["output"], views, sweeps)
+    return sites, convs
 
 
 def kernel_sites(session, h: int, w: int) -> Dict[str, int]:

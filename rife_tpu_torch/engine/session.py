@@ -1,5 +1,5 @@
-"""RIFE session on PyTorch (port of ``rife_tpu/engine/session.py``, plain v4
-and v2 paths).
+"""RIFE session on PyTorch (port of ``rife_tpu/engine/session.py``, the v4
+and v2 families, plain 2x and the ``-x``/``-z`` TTA modes).
 
 One session owns the model's nets after the rewrite chain, their weights on
 the session's device, and one ``rife_tpu`` ``Executor`` per net over
@@ -11,10 +11,14 @@ v2/v3 nets run with ctx ``planar_convs``, because the TPU runs them on its
 planar executors: the conv sites that those send to the Pallas planar convs
 take the ``conv3x3`` kernel (``ops/conv.py``).
 
+``fuse_ds2`` is the JAX session's ``RIFE_TPU_FUSE_DS2=1``: the exact rewrite
+of each warp-then-1/2-downscale into ``rife.WarpDs2`` (K3 on a frame copy).
+Off by default, as there; the port reads no ``RIFE_TPU_*`` variable.
+
 Left out, as TPU-only machinery: planar/region executors, the warp-variant
-probe, the compile cache and the ``RIFE_TPU_*`` switches.  TTA, UHD and the
-v1 family raise ``NotImplementedError`` naming the ROADMAP item that ports
-them.
+probe, the compile cache.  ``-u`` is ignored for the v4 family, as in the JAX
+session; UHD for v2 (ROADMAP A10) and the v1 family (A9) raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,12 +63,13 @@ def pad_to(v: int, align: int = PAD_ALIGN) -> int:
     return (v + align - 1) // align * align
 
 
-def rewrite_flownet(graph, weights):
+def rewrite_flownet(graph, weights, fuse_ds2: bool = False):
     """The rewrite chain of the TPU defaults (``rife_tpu`` session.py:159-247)
     for a v4 flownet; every rewrite is exact.  ``push_concat_through_interp``
-    stays off for v4, as there."""
+    stays off for v4, as there.  ``fuse_ds2``: fuse warp + 1/2 downscale
+    pairs too (``RIFE_TPU_FUSE_DS2``)."""
     protected = _EXTRACTABLE["flownet"]
-    graph = fuse_quarter_downscaled_warps(graph, protected, fuse_half=False)
+    graph = fuse_quarter_downscaled_warps(graph, protected, fuse_half=fuse_ds2)
     graph, weights = fuse_prelu_activations(graph, weights, protected)
     graph = fuse_concat_into_convs(graph, protected, flatten_nested=False)
     graph = fuse_pixelshuffle_into_convs(graph, protected)
@@ -73,12 +78,12 @@ def rewrite_flownet(graph, weights):
     return graph, weights
 
 
-def rewrite_planar_net(name, graph, weights):
+def rewrite_planar_net(name, graph, weights, fuse_ds2: bool = False):
     """The same chain for a net the TPU runs on its planar executor (every
     v1/v2/v3 net): nested block-entry concats flatten into the conv's parts,
     and downscale ``Interp`` nodes are pushed through concats."""
     protected = _EXTRACTABLE[name]
-    graph = fuse_quarter_downscaled_warps(graph, protected, fuse_half=False)
+    graph = fuse_quarter_downscaled_warps(graph, protected, fuse_half=fuse_ds2)
     graph, weights = fuse_prelu_activations(graph, weights, protected)
     graph = fuse_concat_into_convs(graph, protected, flatten_nested=True)
     graph = push_concat_through_interp(graph, protected)
@@ -89,26 +94,28 @@ def rewrite_planar_net(name, graph, weights):
 
 
 class RIFE:
-    """Frame-interpolation session for the v4 and v2/v3 families, plain 2x.
+    """Frame-interpolation session for the v4 and v2/v3 families.
 
     ``device`` is required and explicit ("cuda", "cuda:1", "cpu"); asking for
     CUDA without a card raises.  ``dtype`` defaults to bf16 on CUDA and f32
-    on the CPU."""
+    on the CPU.  ``tta_mode`` (-x), ``tta_temporal_mode`` (-z) and
+    ``uhd_mode`` (-u) mirror the reference ctor; ``fuse_ds2`` is the
+    ``RIFE_TPU_FUSE_DS2`` rewrite (module docstring)."""
 
     def __init__(self, model: str = "rife-v2.3", *, device,
                  dtype: Optional[torch.dtype] = None, model_root=None,
                  tta_mode: bool = False, tta_temporal_mode: bool = False,
-                 uhd_mode: bool = False):
-        if tta_mode or tta_temporal_mode:
-            raise NotImplementedError(
-                "TTA (-x/-z) is not ported yet (ROADMAP queue A, A8)")
-        if uhd_mode:
-            raise NotImplementedError(
-                "UHD mode (-u) is not ported yet (ROADMAP queue A, A10)")
+                 uhd_mode: bool = False, fuse_ds2: bool = False):
         self.device = resolve_device(device)
         self.dtype = dtype or default_dtype(self.device)
         self.model = load_model(model, model_root)
         family = self.model.family
+        # the v4 family ignores -u (rife_tpu session.py:102)
+        if uhd_mode and family != "v4":
+            raise NotImplementedError(
+                "UHD mode (-u) is not ported yet (ROADMAP queue A, A10)")
+        self.tta_mode = tta_mode
+        self.tta_temporal_mode = tta_temporal_mode
         if family == "v1":
             raise NotImplementedError(
                 f"{self.model.name} (v1 family) is not ported yet (ROADMAP "
@@ -117,10 +124,12 @@ class RIFE:
         self.weights = {}
         for name, net in self.model.nets.items():
             if family == "v4":
-                graph, weights = rewrite_flownet(net.graph, net.weights)
+                graph, weights = rewrite_flownet(net.graph, net.weights,
+                                                 fuse_ds2=fuse_ds2)
             else:
                 graph, weights = rewrite_planar_net(name, net.graph,
-                                                    net.weights)
+                                                    net.weights,
+                                                    fuse_ds2=fuse_ds2)
             ex = Executor(graph, torch_ops.OP_TABLE, weights, ctx={
                 "u8_image_blobs": frozenset(
                     graph.value_copies_of(_IMG_SEEDS.get(name, ()))),
@@ -161,14 +170,16 @@ class RIFE:
                 f"timestep 0.5; got {np.unique(ts)}")
         a, b = self._frames(in0), self._frames(in1)
         h, w = a.shape[1], a.shape[2]
+        modes = {"tta": self.tta_mode, "temporal": self.tta_temporal_mode}
         with torch.inference_mode():
             if self.model.family == "v4":
                 return pipelines.forward_v4(
                     self.executor, self.weights["flownet"], a, b,
                     torch.from_numpy(ts).to(self.device), pad_to(h), pad_to(w),
-                    self.dtype)
+                    self.dtype, **modes)
             return pipelines.forward_v2(self.executors, self.weights, a, b,
-                                        pad_to(h), pad_to(w), self.dtype)
+                                        pad_to(h), pad_to(w), self.dtype,
+                                        **modes)
 
     def process_batch(self, in0, in1, timesteps) -> np.ndarray:
         """Interpolate a batch: (B,H,W,3) u8 pairs + (B,) timesteps -> u8."""

@@ -106,6 +106,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
         # 6 tensor pointers, batch, height, width, bf16 flag, stream
         fn.argtypes = [vp] * 6 + [i, i, i, i, vp]
         fn.restype = i
+    # image, flow, out; batch, height, width, bf16 flag, stream
+    lib.rife_warp_ds2.argtypes = [vp] * 3 + [i, i, i, i, vp]
+    lib.rife_warp_ds2.restype = i
     # image, flow/positions, out; batch, C, H, W, Ho, Wo, abs_pos, u8, bf16
     lib.rife_warp_single.argtypes = [vp] * 3 + [i] * 9 + [vp]
     lib.rife_warp_single.restype = i

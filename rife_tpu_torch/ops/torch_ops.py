@@ -1,5 +1,5 @@
 """PyTorch implementations of the ncnn layer kinds the rife-v4.6 and rife-v2.3
-plain paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by
+paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by
 ``rife_tpu``'s ``Executor``.
 
 Tensors are NCHW; an ncnn CHW axis ``a`` of a rank-4 blob is torch dim
@@ -22,7 +22,8 @@ card), as the JAX package leaves them to XLA, except at the sites that the
 TPU's planar executor sends to its Pallas convs: in a net run with ctx
 ``planar_convs`` (the v1/v2/v3 nets), the gates of ``ops/conv.py`` route a
 site to the ``conv3x3`` kernel (K9-K12).  The warps dispatch into
-``ops/warp.py``: the pair kernels for paired u8-origin warps, the single-warp
+``ops/warp.py``: the pair kernels for paired u8-origin warps, the fused warp
++ 1/2 downsample (K3) for ``rife.WarpDs2`` of a frame copy, the single-warp
 kernel for the rest (u8-origin mode K4, float mode K1/K2).
 """
 
@@ -377,6 +378,20 @@ def _op_warp_ds4_pair(node, inputs, w, ctx):
     ]
 
 
+def _op_warp_ds2(node, inputs, w, ctx):
+    """rife.WarpDs2 (rewrite fuse_quarter_downscaled_warps with
+    ``fuse_half``): a warp followed by the exact 1/2 downsample.  A
+    u8-eligible frame copy with even H and W takes K3 (``warp_ds2``); any
+    other image the warp, then ``resize2d`` to (H/2, W/2): the unfused
+    branch of ``jax_ops._op_warp_ds2`` itself."""
+    image, flow = inputs[0], inputs[1]
+    h, wid = image.shape[2], image.shape[3]
+    if h % 2 == 0 and wid % 2 == 0 and _is_u8(node.bottoms[0], image, ctx):
+        return [W.warp_ds2(image.contiguous(), flow.contiguous())]
+    y = _single(node, image, flow, node.bottoms[0], ctx, ds4=False)
+    return [resize2d(y, round(h * 0.5), round(wid * 0.5))]
+
+
 def _op_render_blend(node, inputs, w, ctx):
     """rife.RenderBlend (rewrite fuse_render_blend):
     ``warp(img_m, flow_m)*mask + warp(img_inv, flow_inv)*(1-mask)``.
@@ -414,6 +429,7 @@ OP_TABLE = {
     "Sigmoid": _op_sigmoid,
     "rife.Warp": _op_warp,
     "rife.WarpDs4": _op_warp_ds4,
+    "rife.WarpDs2": _op_warp_ds2,
     "rife.WarpPair": _op_warp_pair,
     "rife.WarpDs4Pair": _op_warp_ds4_pair,
     "rife.RenderBlend": _op_render_blend,

@@ -20,6 +20,9 @@ computes, from the math (the kernels themselves live in
 * ``warp_u8``        <- ``_warp_pallas_u8_impl_any`` (K4): one u8-origin
   warp (a ``rife.Warp`` of a frame copy that no sibling pairs with, as in
   the v2 fusionnet); the same kernel as ``warp_feat`` in its u8 mode
+* ``warp_ds2``       <- ``_warp_pallas_u8_ds2_impl`` ->
+  ``_warp_kernel_u8_slab_ds2`` (K3): the u8-origin warp of a frame copy
+  fused with the exact half-pixel 1/2 downsample (``rife.WarpDs2``)
 
 The shared u8-origin warp, per output pixel and channel:
 
@@ -65,7 +68,7 @@ from ..native import build
 INV255 = 1.0 / 255.0  # used as f32(1/255), as the Pallas kernels do
 
 LAUNCHES = {"warp_pair": 0, "warp_render": 0, "warp_ds4_pair": 0,
-            "warp_feat": 0, "warp_u8": 0}
+            "warp_feat": 0, "warp_u8": 0, "warp_ds2": 0}
 
 
 def reset_launches() -> None:
@@ -209,6 +212,13 @@ def warp_ds4_pair_ref(img_a, flow_a, img_b, flow_b):
     return warp_ds4_u8_ref(img_a, flow_a), warp_ds4_u8_ref(img_b, flow_b)
 
 
+def warp_ds2_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
+    """Twin of K3: the u8-origin warp of every full-resolution pixel, cast
+    to the storage dtype, then the exact half-pixel 1/2 downsample (rows,
+    then columns, 0.5/0.5 in that dtype): (B,C,H,W) -> (B,C,H/2,W/2)."""
+    return half_sum2(warp_u8_ref(img, flow))
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers
 # ---------------------------------------------------------------------------
@@ -300,6 +310,21 @@ def warp_ds4_pair(img_a, flow_a, img_b, flow_b):
             b, h, w, code, img_a.device)
     LAUNCHES["warp_ds4_pair"] += 1
     return out_a, out_b
+
+
+def warp_ds2(img, flow):
+    """K3 on CUDA, its twin on the CPU: the u8-origin warp of a (B,3,H,W)
+    frame copy fused with the 1/2 downsample -> (B,3,H/2,W/2); H, W even."""
+    if img.device.type == "cpu":
+        return warp_ds2_ref(img, flow)
+    b, h, w, code = _check([img], [flow])
+    if h % 2 or w % 2:
+        raise ValueError(f"warp_ds2 needs even H and W, got {h}x{w}")
+    out = torch.empty((b, 3, h // 2, w // 2), dtype=img.dtype,
+                      device=img.device)
+    _launch("rife_warp_ds2", [img, flow, out], b, h, w, code, img.device)
+    LAUNCHES["warp_ds2"] += 1
+    return out
 
 
 def _check_single(img, pos, abs_pos: bool):

@@ -1,5 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch twin, and
-the v4.6 and v2.3 slices on CUDA against the same sessions on the CPU.
+the v4.6 and v2.3 slices on CUDA (plain, and ``-x -z`` with ``fuse_ds2``)
+against the same sessions on the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel has
 no CPU mode).  The file imports no jax, so it also runs where jax is absent:
@@ -140,7 +141,7 @@ def test_unfused_warps_take_single_kernel_on_cuda(cuda_device, model_dir,
     ts = np.full(2, 0.5, np.float32)
     fused = RIFE(str(model_dir), device=cuda_device).process_batch(a, b, ts)
     monkeypatch.setattr(session, "rewrite_flownet",
-                        lambda graph, weights: (graph, weights))
+                        lambda graph, weights, **_: (graph, weights))
     sess = RIFE(str(model_dir), device=cuda_device)
     W.reset_launches()
     got = sess.process_batch(a, b, ts)
@@ -263,5 +264,48 @@ def test_v23_slice_f32_matches_cpu(cuda_device, v23_dir, monkeypatch):
     CV.reset_launches()
     got = sess.process_batch(a, b, ts)
     assert {**launched(), **CV.LAUNCHES} == kernel_sites(sess, 64, 96)
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 68, 260), (2, 52, 196),
+                                   (1, 1088, 1920), (1, 1920, 1088)])
+def test_warp_ds2_kernel_matches_twin(cuda_device, shape, dtype):
+    ia, fa, _, _, _ = inputs(11, *shape, dtype, cuda_device)
+    W.reset_launches()
+    got = W.warp_ds2(ia, fa)
+    want = W.warp_ds2_ref(ia, fa)
+    torch.cuda.synchronize()
+    assert launched() == {"warp_ds2": 1}
+    check(got, want)
+    with pytest.raises(ValueError, match="even"):
+        W.warp_ds2(ia[..., :-1].contiguous(), fa[..., :-1].contiguous())
+
+
+@pytest.mark.parametrize("model", ["v4.6", "v2.3"])
+def test_tta_fused_f32_matches_cpu(cuda_device, model_dir, v23_dir, model,
+                                   monkeypatch):
+    """``-x -z`` with ``fuse_ds2`` on the card against the CPU session;
+    launches per step equal plan.kernel_sites, K3 among them."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.ops import conv as CV
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
+    monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
+    d = str(model_dir if model == "v4.6" else v23_dir)
+    kw = {"tta_mode": True, "tta_temporal_mode": True, "fuse_ds2": True}
+    a, b = frames(50, 70)
+    ts = np.full(2, 0.5, np.float32)
+    want = RIFE(d, device="cpu", **kw).process_batch(a, b, ts)
+    sess = RIFE(d, device=cuda_device, dtype=torch.float32, **kw)
+    W.reset_launches()
+    CV.reset_launches()
+    got = sess.process_batch(a, b, ts)
+    counts = {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
+    assert counts == kernel_sites(sess, 50, 70) and counts["warp_ds2"] == 8
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.999

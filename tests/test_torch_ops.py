@@ -79,8 +79,8 @@ def test_op_table_kinds():
         "Convolution", "ConvolutionCat", "Deconvolution", "rife.DeconvPS",
         "PixelShuffle", "Interp", "Concat", "Crop", "Slice", "Split",
         "BinaryOp", "Eltwise", "Sigmoid", "rife.Warp", "rife.WarpDs4",
-        "rife.WarpPair", "rife.WarpDs4Pair", "rife.RenderBlend",
-        "PReLU", "ReLU", "Clip",
+        "rife.WarpPair", "rife.WarpDs4Pair", "rife.WarpDs2",
+        "rife.RenderBlend", "PReLU", "ReLU", "Clip",
     }
     assert set(torch_ops.OP_TABLE) <= set(jax_ops.OP_TABLE)
 

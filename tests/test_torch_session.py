@@ -65,7 +65,7 @@ def test_slice_matches_rife_tpu(model_dir, jax_reference, size, t, rewrite,
                                 monkeypatch):
     if not rewrite:  # run the graph as parsed: unfused warps and render
         monkeypatch.setattr(session_mod, "rewrite_flownet",
-                            lambda graph, weights: (graph, weights))
+                            lambda graph, weights, **_: (graph, weights))
     sess = RIFE(str(model_dir), device="cpu")
     assert sess.executor.render_planar == rewrite
     a, b = frames(*size)
@@ -124,12 +124,12 @@ def test_t_shortcuts_and_single_pair(model_dir):
 
 
 def test_unported_modes_raise(model_dir):
-    with pytest.raises(NotImplementedError, match="A8"):
-        RIFE(str(model_dir), device="cpu", tta_mode=True)
-    with pytest.raises(NotImplementedError, match="A8"):
-        RIFE(str(model_dir), device="cpu", tta_temporal_mode=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        RIFE(str(model_dir), device="cpu", uhd_mode=True)
+    """TTA runs on the v4 family and ``-u`` is ignored there, as in the JAX
+    session (tests/test_torch_tta_session.py); the v1 family and UHD on v2
+    (same file) are still unported."""
+    for mode in ({"tta_mode": True}, {"tta_temporal_mode": True},
+                 {"uhd_mode": True}):
+        RIFE(str(model_dir), device="cpu", **mode)
     v1 = model_dir.parent / "rife-anime"
     v1.mkdir(exist_ok=True)
     for net in ("flownet", "contextnet", "fusionnet"):

@@ -74,7 +74,8 @@ def test_slice_matches_rife_tpu(model_dir, jax_reference, size, rewrite,
                                 sites, monkeypatch):
     if not rewrite:  # run the graphs as parsed
         monkeypatch.setattr(session_mod, "rewrite_planar_net",
-                            lambda name, graph, weights: (graph, weights))
+                            lambda name, graph, weights, **_: (graph,
+                                                               weights))
     if sites == "all":
         lower_gates(monkeypatch)
     sess = RIFE(str(model_dir), device="cpu")

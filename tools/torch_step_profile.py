@@ -1,14 +1,14 @@
 """Where the time of one rife_tpu_torch step goes on the card.
 
-Runs the plain 2x bf16 step of the v4.6-architecture graph or the
+Runs the 2x bf16 step of the v4.6-architecture graph or the
 v2.3-architecture graphs (in-repo reconstructions, synthetic weights) at
-1080p, B=8 by default, under ``torch.profiler`` and prints: the step's wall
-time, the summed device time of its kernels, the device's idle share over
-the profiled window, and the kernels ranked by device time.  Needs one
-NVIDIA GPU.
+1080p, B=8 by default, plain or with ``--fuse-ds2`` and ``--tta`` (``-x -z``),
+under ``torch.profiler`` and prints: the step's wall time, the summed device
+time of its kernels, the device's idle share over the profiled window, and
+the kernels ranked by device time.  Needs one NVIDIA GPU.
 
 Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3]
-     [--table PATH]
+     [--fuse-ds2] [--tta] [--table PATH]
 """
 
 from __future__ import annotations
@@ -30,6 +30,9 @@ def main() -> int:
     ap.add_argument("batch", type=int, nargs="?", default=8)
     ap.add_argument("steps", type=int, nargs="?", default=3)
     ap.add_argument("--model", choices=("v4.6", "v2.3"), default="v4.6")
+    ap.add_argument("--fuse-ds2", action="store_true",
+                    help="RIFE(..., fuse_ds2=True)")
+    ap.add_argument("--tta", action="store_true", help="-x -z TTA")
     ap.add_argument("--table", type=Path, help="write the full table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -49,7 +52,8 @@ def main() -> int:
         from rife_tpu_torch.models.v46_arch import LABEL, write_flownet_param
 
         model_dir = write_flownet_param(models)
-    sess = RIFE(str(model_dir), device="cuda")
+    sess = RIFE(str(model_dir), device="cuda", fuse_ds2=args.fuse_ds2,
+                tta_mode=args.tta, tta_temporal_mode=args.tta)
     b, h, w = args.batch, 1080, 1920
     rng = np.random.default_rng(0)
     f0 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), np.uint8)).cuda()
@@ -70,7 +74,9 @@ def main() -> int:
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     step_ms = wall / args.steps * 1e3
-    print(f"{LABEL}, bf16 {h}x{w} B={b}, {torch.cuda.get_device_name(0)}")
+    modes = " fuse_ds2" * args.fuse_ds2 + " -x -z" * args.tta
+    print(f"{LABEL},{modes or ' plain'}, bf16 {h}x{w} B={b}, "
+          f"{torch.cuda.get_device_name(0)}")
     print(f"step wall {step_ms:.3f} ms (profiled), device kernel time "
           f"{busy_us / 1e3 / args.steps:.3f} ms/step, idle share "
           f"{1 - busy_us / 1e6 / wall:.3f}")
