@@ -19,9 +19,16 @@ and with ``-x -z`` TTA plus ``fuse_ds2``:
    contextnet's four feature warps of a 1080p B=8 step (C=32..256, the batch
    of 16 both frames make), an odd C and an unaligned size, raw flow and
    absolute positions; ``warp_u8`` at the fusionnet's frame warps; and
-   ``conv3x3`` at every site the gates route at 1080p B=8 (deconv phase
-   sites included; beside it cuDNN's bf16 conv on the same call).  Bars: warps f32 max |d| <= 2e-6, conv3x3 f32 max |d| <=
-   1e-5 of the largest output; bf16 <= 1 ulp and >= 99% exact;
+   ``conv3x3`` at every site the gates route at 1080p B=8 (the deconv sites
+   through ``deconv4x4``, whose bf16 launch writes the interleaved phases),
+   per site with cuDNN's bf16 time on the same call (``conv_transpose2d``
+   at a deconv site), the site's bound and the kernel's share of it, and
+   each summed over the step.  Every timed kernel is printed beside its
+   bound (bytes once over 3.35 TB/s, or bf16 FLOP over 989 TFLOP/s) and,
+   for ``warp_feat``, ``grid_sample`` on a prebuilt grid.  Bars: warps f32
+   max |d| <= 2e-6, conv3x3 f32 max |d| <= 1e-5 of the largest output;
+   bf16 <= 1 ulp (for conv3x3 of max(|out|, 2^-14 x the sum of its absolute
+   products), >= 99% exact;
 4. runs the v4.6 slice: (a) f32 on the card (TF32 off) against the same
    session on the CPU at 256x448, u8 max |d| <= 1 and >= 99.9% exact; (b)
    bf16 1080p B=8 on smooth synthetic frames, every launch counter set to 0
@@ -73,6 +80,8 @@ V23_PSNR_ITEMS = 2
 # v2.3 contextnet feature warps of a 1080p B=8 step: (C, H, W) at batch 16
 FEAT_SHAPES = [(32, 272, 480), (64, 136, 240), (128, 68, 120), (256, 34, 60)]
 FEAT_EXTRA = [(2, 7, 68, 120), (2, 32, 33, 61)]  # odd C, unaligned size
+HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
+BF16_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 WARP_SRC = "rife_tpu/ops/warp_pallas.py"
 CONV_SRC = "rife_tpu/ops/conv_planar.py"
 KERNELS = {
@@ -169,9 +178,12 @@ def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
     return torch.pow(2.0, e - 7)
 
 
-def compare(got, want, dtype, f32_rel=None) -> float:
-    """Tolerances of tests/test_torch_warp.py and tests/test_torch_conv.py;
-    returns max |d|."""
+def compare(got, want, dtype, f32_rel=None, scale=None) -> float:
+    """Tolerances of tests/test_torch_warp.py and tests/test_torch_cuda.py;
+    returns max |d|.  ``scale`` (conv3x3): the sum of the absolute products
+    of each output; bf16 ulps are then taken of max(|want|, 2^-14 scale),
+    since two f32 sums in different orders differ by up to ~2^-23 scale,
+    more than one ulp of an output that cancels to near zero."""
     g, r = got.float(), want.float()
     require(g.shape == r.shape, f"shape {tuple(g.shape)} vs {tuple(r.shape)}")
     require(bool(torch.isfinite(g).all()), "non-finite kernel output")
@@ -181,7 +193,9 @@ def compare(got, want, dtype, f32_rel=None) -> float:
         bound = 2e-6 if f32_rel is None else f32_rel * float(r.abs().max())
         require(err <= bound, f"f32 max |d| {err} > {bound}")
     else:
-        require(bool((diff <= bf16_ulp(r)).all()), f"bf16 |d| {err} > 1 ulp")
+        mag = r if scale is None else torch.maximum(r.abs(),
+                                                    scale * 2.0 ** -14)
+        require(bool((diff <= bf16_ulp(mag)).all()), f"bf16 |d| {err} > 1 ulp")
         exact = float((diff == 0).float().mean())
         require(exact >= 0.99, f"bf16 exact share {exact} < 0.99")
     return err
@@ -200,28 +214,56 @@ def time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def bound_ms(n_bytes, flops=0.0):
+    """(least time in ms, what sets it): the bytes over 3.35 TB/s or the
+    bf16 operations over 989 TFLOP/s (H100 SXM data sheet), the larger."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S, flops / BF16_FLOP_S
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
 def check_pair(report, name, kfn, tfn, args, dtype, label, timed,
-               f32_rel=None, iters=20, tally=True):
+               f32_rel=None, iters=20, tally=True, bound=None, library=None,
+               scale=None):
     """Run a kernel and its twin on the same inputs, compare, and (timed)
-    print both times and (tally) add them to the kernel's report."""
+    print both times and (tally) add them, the bound (ms, what sets it) and
+    the library call's time to the kernel's report; returns (kernel ms,
+    library ms), None where not timed."""
     got, want = kfn(*args), tfn(*args)
     torch.cuda.synchronize()
     if isinstance(got, torch.Tensor):
         got, want = (got,), (want,)
-    err = max(compare(g, r, dtype, f32_rel) for g, r in zip(got, want))
+    err = max(compare(g, r, dtype, f32_rel, scale) for g, r in zip(got, want))
     rep = report.setdefault(name, {"max_abs_err": 0.0, "ms": 0.0,
-                                   "plain_ms": 0.0})
+                                   "plain_ms": 0.0, "bound_ms": 0.0,
+                                   "bound_by": None, "library_ms": None})
     rep["max_abs_err"] = max(rep["max_abs_err"], err)
     line = f"kernel {name} {str(dtype)[6:]} {label}: max|d| vs twin {err:.3g}"
+    ms = lib = None
     if timed:
         ms = time_ms(lambda: kfn(*args), iters)
         plain = time_ms(lambda: tfn(*args), max(2, iters // 4))
+        line += (f", kernel {ms:.4f} ms, plain twin {plain:.4f} ms "
+                 f"(CUDA events)")
+        if bound is not None:
+            line += f", bound {bound[0]:.4f} ms ({bound[1]})"
+        lib = time_ms(library, iters) if library is not None else None
+        if lib is not None:
+            line += f", library call {lib:.4f} ms"
         if tally:
             rep["ms"] += ms
             rep["plain_ms"] += plain
-        line += (f", kernel {ms:.4f} ms, plain twin {plain:.4f} ms "
-                 f"(CUDA events)")
+            if bound is not None:
+                rep["bound_ms"] += bound[0]
+                rep["bound_by"] = bound[1]
+            if lib is not None:
+                rep["library_ms"] = (rep["library_ms"] or 0.0) + lib
     print(line, flush=True)
+    return ms, lib
 
 
 def phase_pair_kernels(device, rng, report):
@@ -234,10 +276,17 @@ def phase_pair_kernels(device, rng, report):
             args = {"warp_pair": (ia, fa, ib, fb),
                     "warp_ds4_pair": (ia, fa, ib, fb),
                     "warp_render": (ia, fa, ib, fb, m)}
+            # each input byte the function reads once, each output byte
+            # written once; ds4 reads the flows at the 1/4 tap grid only
+            n_bytes = {
+                "warp_pair": nbytes(ia, fa, ib, fb) + 2 * nbytes(ia),
+                "warp_ds4_pair": (nbytes(ia, fa, ib, fb) + nbytes(ia) // 2) / 4,
+                "warp_render": nbytes(ia, fa, ib, fb, m) + nbytes(ia)}
             for name, (wrap, twin) in PAIR_KERNELS.items():
                 check_pair(report, name, getattr(W, wrap), getattr(W, twin),
                            args[name], dtype, f"B,H,W={shape}",
-                           shape == MAIN_SHAPE and dtype == torch.bfloat16)
+                           shape == MAIN_SHAPE and dtype == torch.bfloat16,
+                           bound=bound_ms(n_bytes[name]))
             del ia, fa, ib, fb, m, args
     torch.cuda.empty_cache()
 
@@ -255,7 +304,8 @@ def phase_warp_ds2(device, rng, report):
             ia, fa, ib, fb, _ = kernel_inputs(rng, shape, dtype, device)
             main = shape == MAIN_SHAPE and dtype == torch.bfloat16
             check_pair(report, "warp_ds2", W.warp_ds2, W.warp_ds2_ref,
-                       (ia, fa), dtype, f"B,H,W={shape}", main)
+                       (ia, fa), dtype, f"B,H,W={shape}", main,
+                       bound=bound_ms(nbytes(ia, fa) + nbytes(ia) / 4))
             if main:
                 h, w = shape[1], shape[2]
                 fused = time_ms(lambda: (W.warp_ds2(ia, fa),
@@ -272,6 +322,17 @@ def phase_warp_ds2(device, rng, report):
     torch.cuda.empty_cache()
 
 
+def sample_grid(flow):
+    """grid_sample's (B,H,W,2) grid of pixel + flow, normalised for
+    align_corners=True."""
+    b, _, h, w = flow.shape
+    ys, xs = torch.meshgrid(torch.arange(h, device=flow.device),
+                            torch.arange(w, device=flow.device), indexing="ij")
+    gx = (xs + flow[:, 0].float()) * (2.0 / max(w - 1, 1)) - 1
+    gy = (ys + flow[:, 1].float()) * (2.0 / max(h - 1, 1)) - 1
+    return torch.stack([gx, gy], dim=-1).to(flow.dtype)
+
+
 def phase_single_warp(device, rng, report):
     """``warp_feat`` (K1/K2) at the contextnet's feature-warp shapes of one
     1080p B=8 step (timed in f32 and bf16; the bf16 sum, one step's, goes to
@@ -286,10 +347,16 @@ def phase_single_warp(device, rng, report):
         for c, h, w in FEAT_SHAPES:
             img = torch.randn(b2, c, h, w, device=device).mul_(2).to(dtype)
             flow = smooth_flow(rng, b2, h, w, dtype, device, shift=6.0)
-            # f32 (K1's form) is timed too, the report keeps bf16 (K2's)
+            # f32 (K1's form) is timed too, the report keeps bf16 (K2's);
+            # the library call: grid_sample on a grid built beforehand
+            grid = sample_grid(flow)
             check_pair(report, "warp_feat", W.warp_feat, W.warp_feat_ref,
                        (img, flow), dtype, f"B,C,H,W={(b2, c, h, w)}", True,
-                       tally=timed)
+                       tally=timed,
+                       bound=bound_ms(nbytes(img, flow) + nbytes(img)),
+                       library=lambda: torch.nn.functional.grid_sample(
+                           img, grid, mode="bilinear", padding_mode="border",
+                           align_corners=True))
         for b, c, h, w in FEAT_EXTRA:
             img = torch.randn(b, c, h, w, device=device).to(dtype)
             flow = smooth_flow(rng, b, h, w, dtype, device)
@@ -304,7 +371,8 @@ def phase_single_warp(device, rng, report):
         b, h, w = BENCH[0], 1088, 1920
         ia, fa, _, _, _ = kernel_inputs(rng, (b, h, w), dtype, device)
         check_pair(report, "warp_u8", W.warp_u8, W.warp_u8_ref, (ia, fa),
-                   dtype, f"B,H,W={(b, h, w)}", timed)
+                   dtype, f"B,H,W={(b, h, w)}", timed,
+                   bound=bound_ms(nbytes(ia, fa) + nbytes(ia)))
         ia, fa, _, _, _ = kernel_inputs(rng, ODD_SHAPE, dtype, device)
         check_pair(report, "warp_u8",
                    lambda i, f: W.warp_u8(i, W.ds4_positions(f), abs_pos=True),
@@ -315,44 +383,89 @@ def phase_single_warp(device, rng, report):
     torch.cuda.empty_cache()
 
 
+def conv_site_bound(b, parts, cout, stride, h, w, deconv):
+    """(ms, what sets it) of one conv3x3 site: bf16 input, weights and
+    output once, f32 bias and slope; the MACs of the 3x3 conv (a deconv
+    site: the 4x4 transposed conv's 16 taps, not the phase form's zeros)."""
+    cin = sum(parts)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    out = b * cout * ho * wo
+    taps = 16 * cout // 4 if deconv else 9 * cout
+    n_bytes = 2 * b * cin * h * w + 2 * taps * cin + 8 * cout + 2 * out
+    macs = (16 * cin * (cout // 4) * h * w * b if deconv
+            else 9 * cin * out)
+    return bound_ms(n_bytes, 2.0 * macs)
+
+
 def phase_conv(device, rng, report, sites):
     """``conv3x3`` at each site of one 1080p B=8 step, random weights, every
-    activation as the site has it; bf16 times summed over the sites are one
-    step's conv3x3 time."""
+    activation as the site has it, against its twin (deconv sites through
+    ``deconv4x4``, the phases interleaved by the kernel, against
+    ``deconv4x4_ref``).  bf16 per site: the kernel's time, cuDNN's on the
+    same call (``conv2d`` on the concat; ``conv_transpose2d`` on the raw
+    weights, whose output is interleaved already), the site's bound and the
+    kernel's share of it; then each summed over the step."""
     from rife_tpu_torch.ops import conv as CV
 
+    F = torch.nn.functional
     for dtype in (torch.bfloat16, torch.float32):
-        for factor, parts, cout, stride, act, h, w in sites:
+        sums = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
+        for i, (factor, parts, cout, stride, act, h, w, deconv) in \
+                enumerate(sites):
             b = factor * BENCH[0]
             xs = [torch.randn(b, c, h, w, device=device).to(dtype)
                   for c in parts]
             cin = sum(parts)
-            weight = (torch.randn(cout, cin, 3, 3, device=device)
-                      * (1.0 / (3.0 * cin ** 0.5))).to(dtype)
             bias = torch.randn(cout, device=device) * 0.1
             slope = torch.rand(cout, device=device) * 0.3
-            args = (xs, weight, bias, slope)
-            check_pair(report, "conv3x3",
-                       lambda x, wt, bi, sl: CV.conv3x3(
-                           x, wt, bi, sl, stride=stride, act=act),
-                       lambda x, wt, bi, sl: CV.conv3x3_ref(
-                           x, wt, bi, sl, stride=stride, act=act),
-                       args, dtype, f"B={b} parts={parts} cout={cout} "
-                       f"s{stride} act{act} {h}x{w}",
-                       dtype == torch.bfloat16, f32_rel=1e-5, iters=10)
-            if dtype == torch.bfloat16:
-                # what a tensor-core conv reaches on the same call: cuDNN in
-                # bf16 (conv only; the XLA form's bias and activation would
-                # follow as separate kernels)
-                x = torch.cat(xs, dim=1)
-                ms = time_ms(lambda: torch.nn.functional.conv2d(
-                    x, weight, None, stride=stride, padding=1), 10)
-                rep = report["conv3x3"]
-                rep["cudnn_bf16_ms"] = rep.get("cudnn_bf16_ms", 0.0) + ms
-                print(f"  cuDNN bf16 conv on the same inputs: {ms:.4f} ms",
-                      flush=True)
-                del x
-            del xs, weight, args
+            if deconv:
+                raw = (torch.randn(cin, cout // 4, 4, 4, device=device)
+                       * (1.0 / (2.0 * cin ** 0.5))).to(dtype)
+                weight = CV.deconv_phase_weights(raw).contiguous()
+                packed = CV.pack_weight_tc(weight)
+                kfn = lambda x, wt, bi, sl: CV.deconv4x4(  # noqa: E731
+                    x[0], wt, bi, sl, act=act, phase_weight_tc=packed)
+                tfn = lambda x, wt, bi, sl: CV.deconv4x4_ref(  # noqa: E731
+                    x[0], wt, bi, sl, act=act)
+                scale = CV.deconv4x4_ref(xs[0].float().abs(),
+                                         weight.float().abs())
+                library = lambda: F.conv_transpose2d(  # noqa: E731
+                    xs[0], raw, None, stride=2, padding=1)
+            else:
+                weight = (torch.randn(cout, cin, 3, 3, device=device)
+                          * (1.0 / (3.0 * cin ** 0.5))).to(dtype)
+                packed = CV.pack_weight_tc(weight)
+                kfn = lambda x, wt, bi, sl: CV.conv3x3(  # noqa: E731
+                    x, wt, bi, sl, stride=stride, act=act, weight_tc=packed)
+                tfn = lambda x, wt, bi, sl: CV.conv3x3_ref(  # noqa: E731
+                    x, wt, bi, sl, stride=stride, act=act)
+                scale = CV.conv3x3_ref([x.float().abs() for x in xs],
+                                       weight.float().abs(), stride=stride)
+                cat = torch.cat(xs, dim=1)
+                library = lambda: F.conv2d(  # noqa: E731
+                    cat, weight, None, stride=stride, padding=1)
+            timed = dtype == torch.bfloat16
+            bound = conv_site_bound(b, parts, cout, stride, h, w, deconv)
+            ms, lib = check_pair(
+                report, "conv3x3", kfn, tfn, (xs, weight, bias, slope), dtype,
+                f"site {i}: B={b} parts={parts} cout={cout} s{stride} act{act} "
+                f"{h}x{w}{' deconv' if deconv else ''}", timed, f32_rel=1e-5,
+                iters=10, bound=bound if timed else None,
+                library=library if timed else None, scale=scale)
+            if timed:
+                sums["kernel"] += ms
+                sums["cudnn"] += lib
+                sums["bound"] += bound[0]
+                print(f"  site {i}: kernel {ms:.4f} ms, cuDNN bf16 {lib:.4f} "
+                      f"ms, bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
+                      f"{100 * bound[0] / ms:.1f}% of its bound", flush=True)
+            del xs, weight, scale, library
+        if dtype == torch.bfloat16:
+            print(f"conv3x3 bf16 over the {len(sites)} sites of one step: "
+                  f"kernel {sums['kernel']:.4f} ms, cuDNN bf16 "
+                  f"{sums['cudnn']:.4f} ms, bound {sums['bound']:.4f} ms, "
+                  f"kernel at {100 * sums['bound'] / sums['kernel']:.1f}% of "
+                  f"the bound", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -592,7 +705,7 @@ def main() -> int:
     require(v23.dtype == torch.bfloat16, "bf16 is the CUDA default")
     sites = conv_sites(v23, BENCH[1], BENCH[2])
     print(f"v2.3 conv3x3 sites at {BENCH[1]}x{BENCH[2]} (batch factor, "
-          f"parts, cout, stride, act, H, W): {sites}", flush=True)
+          f"parts, cout, stride, act, H, W, deconv): {sites}", flush=True)
 
     rng = np.random.default_rng(20261016)
     torch.manual_seed(20261016)
@@ -633,11 +746,7 @@ def main() -> int:
             "also_replaces": covers,
             "launches": sum(counts.values()),
             "launches_by_path": counts,
-            "max_abs_err": report[name]["max_abs_err"],
-            "ms": report[name]["ms"],
-            "plain_ms": report[name]["plain_ms"],
-            **{k: v for k, v in report[name].items()
-               if k not in ("max_abs_err", "ms", "plain_ms")},
+            **report[name],
         })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -1,12 +1,15 @@
 """rife_tpu_torch — the PyTorch/CUDA port of rife_tpu for one NVIDIA H100.
 
-The JAX package ``rife_tpu`` stays the reference.  This package reuses its
-framework-free layers (``rife_tpu.graph``, ``rife_tpu.models.zoo``,
-``rife_tpu.ops.common``) and never imports jax: the ops are PyTorch, and the
-warp and planar conv kernels that ``rife_tpu`` wrote in Pallas are
-hand-written CUDA (``csrc/warp.cu``, ``csrc/conv.cu``).
+The JAX package ``rife_tpu`` stays the reference.  This package imports
+nothing of it and never imports jax: it keeps its own copies of the JAX
+package's framework-free layers (``graph/``: ir, param, weights, rewrite,
+``Executor``; ``models/zoo.py``; ``ops/common.py``), the ops are PyTorch,
+and the warp and planar conv kernels that ``rife_tpu`` wrote in Pallas are
+hand-written CUDA (``csrc/warp.cu``, ``csrc/conv.cu``).  Only the tests
+import both, to hold the port against the reference.
 
-Device and dtype policy: the device is always explicit.  Activations are
+Device and dtype policy: sessions run on the card ("cuda") unless the caller
+asks for the CPU.  Activations are
 bf16 on CUDA (f32 accumulation inside convs and kernels) and f32 on the CPU,
 as ``rife_tpu/cli.py`` chooses for a TPU and the CPU.  Nothing moves to the
 CPU on its own: asking for CUDA without a card raises.

@@ -19,8 +19,7 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, List, Tuple
 
-from rife_tpu.ops import common as C
-
+from ..ops import common as C
 from ..ops import conv as CV
 from .pipelines import CONTEXT_FEATS, V4_TAPS
 from .session import pad_to
@@ -48,7 +47,8 @@ def _cut(shape: Shape, axis: int, start: int, end: int) -> Shape:
 def _walk(ex, inputs: Dict[str, Shape], outputs):
     """(kernel launches, blob shapes, conv3x3 sites) of one run of ``ex``;
     a site is the kernel call's (part channels, cout, stride, activation
-    code, input H, W)."""
+    code, input H, W, deconv); a deconv site's cout counts its four output
+    phases."""
     g, ctx = ex.graph, ex.ctx
     u8 = ctx.get("u8_image_blobs", ())
     planar = ctx.get("planar_convs", False)
@@ -82,10 +82,11 @@ def _walk(ex, inputs: Dict[str, Shape], outputs):
             if planar and kind == "ConvolutionCat" and \
                     CV.cat_conv_wants_planar(node, x[1], x[2], cin, cout,
                                              len(ins), ctx):
-                convs.append((tuple(parts), cout, stride, act, x[1], x[2]))
+                convs.append((tuple(parts), cout, stride, act, x[1], x[2],
+                              False))
             elif planar and CV.conv_wants_planar(node, x[1], x[2], cin, cout,
                                                  ctx):
-                convs.append(((cin,), cout, stride, act, x[1], x[2]))
+                convs.append(((cin,), cout, stride, act, x[1], x[2], False))
             outs = [(cout, *_conv_out(node, x[1], x[2], False))]
         elif kind in ("Deconvolution", "rife.DeconvPS"):
             cout = int(node.p(0))
@@ -93,7 +94,7 @@ def _walk(ex, inputs: Dict[str, Shape], outputs):
                     and CV.deconv_wants_planar(node, x[1], x[2], x[0], cout,
                                                ctx)):
                 act = CV.ACT_MAP[C.activation_of(node)[0]]
-                convs.append(((x[0],), 4 * cout, 1, act, x[1], x[2]))
+                convs.append(((x[0],), 4 * cout, 1, act, x[1], x[2], True))
             oh, ow = _conv_out(node, x[1], x[2], True)
             if kind == "rife.DeconvPS":
                 outs = [(cout // 4, 2 * oh, 2 * ow)]
@@ -222,7 +223,8 @@ def kernel_sites(session, h: int, w: int) -> Dict[str, int]:
 
 def conv_sites(session, h: int, w: int) -> List[tuple]:
     """The distinct ``conv3x3`` calls of one step on (h, w) frames, as
-    (batch factor, part channels, cout, stride, activation code, H, W)."""
+    (batch factor, part channels, cout, stride, activation code, H, W,
+    deconv): a deconv site (``deconv4x4``) has cout = 4 x its channels."""
     seen = []
     for factor, site in _plan(session, h, w)[1]:
         if (factor, *site) not in seen:

@@ -2,8 +2,9 @@
 and v2 families, plain 2x and the ``-x``/``-z`` TTA modes).
 
 One session owns the model's nets after the rewrite chain, their weights on
-the session's device, and one ``rife_tpu`` ``Executor`` per net over
-``torch_ops.OP_TABLE``.  ``process_batch`` takes (B,H,W,3) u8 frame pairs and
+the session's device, and one ``Executor`` per net over
+``torch_ops.OP_TABLE`` (``graph/``: the port's own copies of the JAX
+package's graph layer).  ``process_batch`` takes (B,H,W,3) u8 frame pairs and
 (B,) timesteps and returns (B,H,W,3) u8 frames.
 
 The v4 nets run as the TPU runs them, NHWC-style: every conv on cuDNN.  The
@@ -28,8 +29,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from rife_tpu.graph.executor import Executor
-from rife_tpu.graph.rewrite import (
+from .. import default_dtype, resolve_device
+from ..graph.executor import Executor
+from ..graph.rewrite import (
     fuse_concat_into_convs,
     fuse_pixelshuffle_into_convs,
     fuse_prelu_activations,
@@ -38,9 +40,7 @@ from rife_tpu.graph.rewrite import (
     fuse_sibling_warps,
     push_concat_through_interp,
 )
-from rife_tpu.models.zoo import load_model
-
-from .. import default_dtype, resolve_device
+from ..models.zoo import load_model
 from ..ops import torch_ops
 from . import pipelines
 
@@ -96,13 +96,13 @@ def rewrite_planar_net(name, graph, weights, fuse_ds2: bool = False):
 class RIFE:
     """Frame-interpolation session for the v4 and v2/v3 families.
 
-    ``device`` is required and explicit ("cuda", "cuda:1", "cpu"); asking for
+    ``device`` defaults to "cuda" ("cuda:1", "cpu" on request); asking for
     CUDA without a card raises.  ``dtype`` defaults to bf16 on CUDA and f32
     on the CPU.  ``tta_mode`` (-x), ``tta_temporal_mode`` (-z) and
     ``uhd_mode`` (-u) mirror the reference ctor; ``fuse_ds2`` is the
     ``RIFE_TPU_FUSE_DS2`` rewrite (module docstring)."""
 
-    def __init__(self, model: str = "rife-v2.3", *, device,
+    def __init__(self, model: str = "rife-v2.3", *, device="cuda",
                  dtype: Optional[torch.dtype] = None, model_root=None,
                  tta_mode: bool = False, tta_temporal_mode: bool = False,
                  uhd_mode: bool = False, fuse_ds2: bool = False):

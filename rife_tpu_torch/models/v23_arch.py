@@ -201,7 +201,7 @@ def write_v23_params(out_dir, widths: Sequence[int] = V23_WIDTHS) -> Path:
     """Write ``<out_dir>/rife-v2.3/{flownet,contextnet,fusionnet}.param`` and
     return the model dir.
 
-    The directory name makes ``rife_tpu.models.zoo.sniff_family`` pick the
+    The directory name makes ``models.zoo.sniff_family`` pick the
     v2 pipeline and ``synthesize_weights`` apply the calibrated
     ``SYNTHETIC_FLOWNET_SCALE`` / ``SYNTHETIC_FUSIONNET_SCALE`` of rife-v2.3;
     both packages load the dir with ``load_model``.  ``widths`` is the four

@@ -180,7 +180,7 @@ def flownet_param_text(widths: Sequence[int] = V46_WIDTHS) -> str:
 def write_flownet_param(out_dir, widths: Sequence[int] = V46_WIDTHS) -> Path:
     """Write ``<out_dir>/rife-v4.6/flownet.param`` and return the model dir.
 
-    The directory name makes ``rife_tpu.models.zoo.sniff_family`` pick the
+    The directory name makes ``models.zoo.sniff_family`` pick the
     v4 pipeline and ``synthesize_weights`` apply the calibrated
     ``SYNTHETIC_FLOWNET_SCALE['rife-v4.6']``; both packages load the dir
     with ``load_model``."""

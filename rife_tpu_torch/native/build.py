@@ -112,11 +112,17 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # image, flow/positions, out; batch, C, H, W, Ho, Wo, abs_pos, u8, bf16
     lib.rife_warp_single.argtypes = [vp] * 3 + [i] * 9 + [vp]
     lib.rife_warp_single.restype = i
-    # 4 part pointers, 4 channel counts, weight, bias, slope, out; batch, H,
-    # W, Cout, stride, activation, alpha, bf16, stream
+    # f32: 4 part pointers, 4 channel counts, weight, bias, slope, out;
+    # batch, H, W, Cout, stride, activation, alpha, stream
     lib.rife_conv3x3.argtypes = ([vp] * 4 + [i] * 4 + [vp] * 4 + [i] * 6
-                                 + [ctypes.c_float, i, vp])
+                                 + [ctypes.c_float, vp])
     lib.rife_conv3x3.restype = i
+    # bf16: 4 part pointers, 4 channel counts, packed weight, its padded
+    # Cin, bias, slope, out; batch, H, W, Cout, stride, activation, alpha,
+    # deconv output channels (0: plain conv), stream
+    lib.rife_conv3x3_tc.argtypes = ([vp] * 4 + [i] * 4 + [vp, i] + [vp] * 3
+                                    + [i] * 6 + [ctypes.c_float, i, vp])
+    lib.rife_conv3x3_tc.restype = i
     lib.rife_error_string.argtypes = [i]
     lib.rife_error_string.restype = ctypes.c_char_p
     return lib

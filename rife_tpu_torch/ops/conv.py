@@ -10,11 +10,14 @@ ReLU, leaky(alpha) or per-channel PReLU) in f32, and ONE rounding to the
 storage dtype (``conv_planar.py:56-63,93-94``).  It replaces
 ``_conv_planar_s1_direct`` (K11) and ``_conv_planar_s2_direct_cat`` (K12);
 ``conv_planar_bhcw`` (K9) and ``conv_s2_bhcw`` (K10) compute the same
-functions and are covered by it.  ``deconv4x4`` runs the 4x4 stride-2
-transposed conv of the planar deconv sites as ``conv_planar.deconv_planar``
-does: one stride-1 ``conv3x3`` producing the four output phases on its
-output channels (``_deconv_phase_weights``), then a plain reshape/permute
-interleave.
+functions and are covered by it.  In bf16 it runs on the tensor cores over
+weights packed once per model (``pack_weight_tc``: (9, Cout, Cin padded to
+16)); in f32 on the CUDA cores over the OIHW weights.  ``deconv4x4`` runs
+the 4x4 stride-2 transposed conv of the planar deconv sites as
+``conv_planar.deconv_planar`` does: one stride-1 conv producing the four
+output phases on its output channels (``deconv_phase_weights``); in bf16 the
+kernel writes each phase to its interleaved place, in f32 a plain
+reshape/permute interleaves them (``interleave_phases``).
 
 Numeric trap (ROADMAP queue C): the XLA conv that the JAX package runs off
 these sites rounds the conv result to the storage dtype BEFORE it adds the
@@ -30,7 +33,8 @@ thresholds (ctx ``planar_min_hw`` / ``planar_deconv_min_hw`` override them,
 ``planar_all`` lifts them, as in ``planar_ops``).
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches.
+raises (nothing falls back to another kernel or to the twin).  ``LAUNCHES``
+counts kernel launches.
 """
 
 from __future__ import annotations
@@ -41,9 +45,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from rife_tpu.ops import common as C
-
 from ..native import build
+from . import common as C
 
 LAUNCHES = {"conv3x3": 0}
 
@@ -184,32 +187,60 @@ def interleave_phases(y4: torch.Tensor) -> torch.Tensor:
     return y.reshape(b, co, 2 * h, 2 * w)
 
 
-def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
-              act=ACT_NONE, alpha=0.2):
-    """4x4 stride-2 pad-1 transposed conv as a stride-1 ``conv3x3`` over the
-    phase weights (``deconv_phase_weights``; bias and slope tiled 4x), then
-    the phase interleave."""
-    y4 = conv3x3([x], phase_weight, phase_bias, phase_slope, stride=1,
-                 act=act, alpha=alpha)
+def deconv4x4_ref(x, phase_weight, phase_bias=None, phase_slope=None, *,
+                  act=ACT_NONE, alpha=0.2):
+    """Twin of the kernel's deconv form: ``conv3x3_ref`` over the phase
+    weights, then ``interleave_phases`` (the kernel writes each phase to its
+    interleaved place itself)."""
+    y4 = conv3x3_ref([x], phase_weight, phase_bias, phase_slope, stride=1,
+                     act=act, alpha=alpha)
     return interleave_phases(y4)
+
+
+def padded_cin(cin: int) -> int:
+    """Input channels of the packed layout: ``cin`` rounded up to 16, the k
+    depth of one tensor-core step."""
+    return (cin + 15) // 16 * 16
+
+
+def pack_weight_tc(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW (Cout, Cin, 3, 3) -> the tensor-core kernel's layout (9, Cout,
+    Cp): tap ky*3+kx, output channel, input channel zero-padded to
+    ``padded_cin``; contiguous, same dtype and device."""
+    cout, cin = weight.shape[0], weight.shape[1]
+    packed = weight.new_zeros((9, cout, padded_cin(cin)))
+    packed[:, :, :cin] = weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    return packed
+
+
+def unpack_weight_tc(packed: torch.Tensor, cin: int) -> torch.Tensor:
+    """Inverse of ``pack_weight_tc``: (9, Cout, Cp) -> (Cout, cin, 3, 3)."""
+    cout = packed.shape[1]
+    return packed[:, :, :cin].reshape(3, 3, cout, cin).permute(
+        2, 3, 0, 1).contiguous()
+
+
+def conv3x3_packed_ref(parts, weight_tc, bias=None, slope=None, *, stride=1,
+                       act=ACT_NONE, alpha=0.2):
+    """Twin over the packed layout: unpack, then ``conv3x3_ref``."""
+    cin = sum(p.shape[1] for p in parts)
+    return conv3x3_ref(parts, unpack_weight_tc(weight_tc, cin), bias, slope,
+                       stride=stride, act=act, alpha=alpha)
 
 
 # ---------------------------------------------------------------------------
 # CUDA wrapper
 # ---------------------------------------------------------------------------
 
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-
-
 def _ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def _check(parts, weight, bias, slope, stride, act):
+def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
     ref = parts[0]
     if ref.device.type != "cuda":
         raise ValueError(f"conv3x3 takes CUDA or CPU tensors, got {ref.device}")
-    if ref.dtype not in _DTYPE_CODE:
+    if ref.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3 takes float32 or bfloat16, got {ref.dtype}")
     if not 1 <= len(parts) <= MAX_PARTS:
         raise ValueError(f"conv3x3 takes 1-{MAX_PARTS} parts, got {len(parts)}")
@@ -234,6 +265,15 @@ def _check(parts, weight, bias, slope, stride, act):
         raise ValueError(f"weight must be contiguous ({cout}, {cin}, 3, 3) "
                          f"{ref.dtype} on {ref.device}, got "
                          f"{tuple(weight.shape)} {weight.dtype}")
+    if ref.dtype == torch.bfloat16 and weight_tc is None:
+        raise ValueError("a bf16 launch takes weight_tc (pack_weight_tc)")
+    if weight_tc is not None and (
+            tuple(weight_tc.shape) != (9, cout, padded_cin(cin))
+            or weight_tc.dtype != ref.dtype or weight_tc.device != ref.device
+            or not weight_tc.is_contiguous()):
+        raise ValueError(f"weight_tc must be contiguous (9, {cout}, "
+                         f"{padded_cin(cin)}) {ref.dtype} on {ref.device}, "
+                         f"got {tuple(weight_tc.shape)} {weight_tc.dtype}")
     for what, t in (("bias", bias), ("slope", slope)):
         if t is None:
             continue
@@ -248,30 +288,78 @@ def _check(parts, weight, bias, slope, stride, act):
     return b, h, w, cout
 
 
+def _raise_on(rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({build.error_string(rc)})")
+
+
+def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
+            phase_o=0):
+    """One launch: the tensor-core kernel for bf16 (over ``weight_tc``, the
+    packed weights; ``phase_o`` > 0 writes a deconv's interleaved phases),
+    the CUDA-core kernel for f32."""
+    b, h, w = parts[0].shape[0], parts[0].shape[2], parts[0].shape[3]
+    cout = weight.shape[0]
+    padded = parts + [None] * (MAX_PARTS - len(parts))
+    chans = [0 if t is None else t.shape[1] for t in padded]
+    lib = build.load()
+    stream = ctypes.c_void_p(
+        torch.cuda.current_stream(parts[0].device).cuda_stream)
+    if parts[0].dtype == torch.bfloat16:
+        rc = lib.rife_conv3x3_tc(*[_ptr(t) for t in padded], *chans,
+                                 _ptr(weight_tc), weight_tc.shape[2],
+                                 _ptr(bias), _ptr(slope), _ptr(out), b, h, w,
+                                 cout, stride, act, ctypes.c_float(alpha),
+                                 phase_o, stream)
+        _raise_on(rc, "rife_conv3x3_tc")
+    else:
+        rc = lib.rife_conv3x3(*[_ptr(t) for t in padded], *chans,
+                              _ptr(weight), _ptr(bias), _ptr(slope),
+                              _ptr(out), b, h, w, cout, stride, act,
+                              ctypes.c_float(alpha), stream)
+        _raise_on(rc, "rife_conv3x3")
+    LAUNCHES["conv3x3"] += 1
+
+
 def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
-            alpha=0.2):
+            alpha=0.2, weight_tc=None):
     """The kernel on CUDA, its twin on the CPU.  ``parts``: 1-4 (B,Ci,H,W)
     tensors whose channel concat is the input; ``weight`` (Cout, sum Ci, 3,
-    3) in their dtype; ``bias``/``slope`` (Cout,) float32 or None.
-    Returns (B, Cout, Ho, Wo) in the parts' dtype."""
+    3) in their dtype; ``weight_tc`` the same weights packed once
+    (``pack_weight_tc``), which a bf16 launch reads and needs;
+    ``bias``/``slope`` (Cout,) float32 or None.  Returns (B, Cout,
+    Ho, Wo) in the parts' dtype."""
     parts = list(parts)
     if parts[0].device.type == "cpu":
         return conv3x3_ref(parts, weight, bias, slope, stride=stride, act=act,
                            alpha=alpha)
-    b, h, w, cout = _check(parts, weight, bias, slope, stride, act)
+    b, h, w, cout = _check(parts, weight, bias, slope, stride, act, weight_tc)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
     out = torch.empty((b, cout, ho, wo), dtype=parts[0].dtype,
                       device=parts[0].device)
-    padded = parts + [None] * (MAX_PARTS - len(parts))
-    chans = [0 if t is None else t.shape[1] for t in padded]
-    lib = build.load()
-    stream = torch.cuda.current_stream(parts[0].device).cuda_stream
-    rc = lib.rife_conv3x3(*[_ptr(t) for t in padded], *chans, _ptr(weight),
-                          _ptr(bias), _ptr(slope), _ptr(out), b, h, w, cout,
-                          stride, act, ctypes.c_float(alpha),
-                          _DTYPE_CODE[parts[0].dtype], ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"rife_conv3x3: CUDA error {rc} "
-                           f"({build.error_string(rc)})")
-    LAUNCHES["conv3x3"] += 1
+    _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc)
+    return out
+
+
+def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
+              act=ACT_NONE, alpha=0.2, phase_weight_tc=None):
+    """4x4 stride-2 pad-1 transposed conv as a stride-1 conv over the phase
+    weights (``deconv_phase_weights``; bias and slope tiled 4x), the phases
+    interleaved into (B, O, 2H, 2W).  CUDA bf16: one launch that writes the
+    interleaved output (``phase_weight_tc`` the packed phase weights).
+    Otherwise ``conv3x3`` (the twin on the CPU, the CUDA-core kernel for
+    f32), then ``interleave_phases``: what ``deconv4x4_ref`` computes."""
+    if x.device.type == "cpu" or x.dtype != torch.bfloat16:
+        return interleave_phases(conv3x3([x], phase_weight, phase_bias,
+                                         phase_slope, stride=1, act=act,
+                                         alpha=alpha))
+    b, h, w, cout = _check([x], phase_weight, phase_bias, phase_slope, 1, act,
+                           phase_weight_tc)
+    if cout % 4:
+        raise ValueError(f"phase weights need 4*O output channels, got {cout}")
+    out = torch.empty((b, cout // 4, 2 * h, 2 * w), dtype=x.dtype,
+                      device=x.device)
+    _launch([x], phase_weight, phase_bias, phase_slope, out, 1, act, alpha,
+            phase_weight_tc, phase_o=cout // 4)
     return out

@@ -1,6 +1,6 @@
 """PyTorch implementations of the ncnn layer kinds the rife-v4.6 and rife-v2.3
-paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by
-``rife_tpu``'s ``Executor``.
+paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by the
+``Executor`` of ``graph/executor.py``.
 
 Tensors are NCHW; an ncnn CHW axis ``a`` of a rank-4 blob is torch dim
 ``a + 1``.  Every kind outside ``OP_TABLE`` raises ``NotImplementedError``
@@ -36,8 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from rife_tpu.ops import common as C
-
+from . import common as C
 from . import conv as CV
 from . import warp as W
 
@@ -145,7 +144,7 @@ def _conv_kernel(node, parts, p, stride):
     act, alpha = _kernel_act(node)
     return CV.conv3x3([x.contiguous() for x in parts], p["weight"],
                       p["bias_f32"], p.get("slope_f32"), stride=stride,
-                      act=act, alpha=alpha)
+                      act=act, alpha=alpha, weight_tc=p.get("weight_tc"))
 
 
 def _op_convolution(node, inputs, w, ctx):
@@ -190,7 +189,8 @@ def _op_deconvolution(node, inputs, w, ctx):
         act, alpha = _kernel_act(node)
         return [CV.deconv4x4(x.contiguous(), p["phase_weight"],
                              p["phase_bias_f32"], p.get("phase_slope_f32"),
-                             act=act, alpha=alpha)]
+                             act=act, alpha=alpha,
+                             phase_weight_tc=p["phase_weight_tc"])]
     y = F.conv_transpose2d(x, p["weight"], p["bias"], stride=stride,
                            padding=pad, dilation=dilation)
     return [_conv_act(node, y, p)]
@@ -453,12 +453,16 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
     """One conv's tensors: ``weight``, ``bias`` and the (1,C,1,1) ``slope``
     in the storage dtype for the cuDNN sites (the XLA form); ``bias_f32``
     and the per-channel ``slope_f32`` for the ``conv3x3`` sites (the
-    planar kernels' form); for a 4x4 stride-2 Deconvolution that the gates
-    can send to the kernel, its phase weights and the 4x tiled f32 bias and
-    slope (``ops/conv.py`` ``deconv_phase_weights``)."""
+    planar kernels' form) and, for a 3x3 conv, ``weight_tc``, the weights
+    packed once for the tensor-core kernel (``ops/conv.py``
+    ``pack_weight_tc``); for a 4x4 stride-2 Deconvolution that the gates can
+    send to the kernel, its phase weights (plain and packed) and the 4x
+    tiled f32 bias and slope (``deconv_phase_weights``)."""
     out_ch = weight.shape[1] if node.type in _DECONV_KINDS else weight.shape[0]
     e = {"weight": _tensor(weight, dtype, device),
          "bias": _tensor(bias, dtype, device)}
+    if node.type in _CONV_KINDS and tuple(weight.shape[2:]) == (3, 3):
+        e["weight_tc"] = CV.pack_weight_tc(e["weight"])
     bias_f32 = None if bias is None else np.asarray(bias, np.float32)
     e["bias_f32"] = _tensor(bias_f32, torch.float32, device)
     slope_f32 = None
@@ -474,6 +478,7 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
             w3 = CV.deconv_phase_weights(torch.from_numpy(
                 np.array(weight, np.float32)))
             e["phase_weight"] = w3.to(device=device, dtype=dtype)
+            e["phase_weight_tc"] = CV.pack_weight_tc(e["phase_weight"])
             tile = lambda a: None if a is None else np.tile(a, 4)  # noqa: E731
             e["phase_bias_f32"] = _tensor(tile(bias_f32), torch.float32, device)
             if slope_f32 is not None:

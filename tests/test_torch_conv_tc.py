@@ -1,0 +1,220 @@
+"""The tensor-core ``conv3x3``'s layouts on the CPU, at the 11 sites of a
+1080p v2.3 step (``plan.conv_sites`` of the full-width reconstruction) cut
+to mini sizes: the packed weights (``pack_weight_tc``) unpack to the OIHW
+weights bit for bit, the twin over the packed layout equals ``conv3x3_ref``
+bit for bit, the deconv twin (``deconv4x4_ref``, the phases interleaved)
+equals ``deconv4x4``'s interleave of the phase conv, and a Python mirror of
+the kernel's epilogue addressing (channel groups, 16-column tiles, 8-column
+stores, the deconv's phase pairs) puts every value where the twins do.  The
+kernel itself against the twins: tests/test_torch_cuda.py, on the card."""
+
+import numpy as np
+import pytest
+import torch
+import torch.nn.functional as F
+
+from rife_tpu_torch import RIFE
+from rife_tpu_torch.engine import plan
+from rife_tpu_torch.models.v23_arch import write_v23_params
+from rife_tpu_torch.ops import conv as CV
+from rife_tpu_torch.ops import torch_ops
+
+N_SITES = 11
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """Mini-size tensors gain nothing from torch's thread pool, and the
+    suite runs several test processes at once: one thread each keeps them
+    from oversubscribing the cores."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+MINI_HW = (20, 36)  # even, so stride-2 sites keep their gate
+
+
+@pytest.fixture(scope="module")
+def sites(tmp_path_factory):
+    d = write_v23_params(tmp_path_factory.mktemp("tc"))
+    s = plan.conv_sites(RIFE(str(d), device="cpu"), 1080, 1920)
+    assert len(s) == N_SITES
+    return s
+
+
+def site_case(site, dtype, seed):
+    """Mini-size parts, weights (phase weights for a deconv site), f32 bias
+    and slope of one site."""
+    _, parts, cout, stride, act, _, _, deconv = site
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    h, w = MINI_HW
+    xs = [t(rng.normal(size=(2, c, h, w))).to(dtype) for c in parts]
+    cin = sum(parts)
+    if deconv:
+        raw = t(rng.normal(size=(cin, cout // 4, 4, 4)) * 0.3)
+        weight = CV.deconv_phase_weights(raw).to(dtype)
+    else:
+        weight = t(rng.normal(size=(cout, cin, 3, 3)) * 0.3).to(dtype)
+    bias = t(rng.normal(size=cout))
+    slope = t(rng.uniform(0.05, 0.4, cout))
+    return xs, weight, bias, slope, stride, act
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("i", range(N_SITES))
+def test_packed_weights_unpack_bit_for_bit(sites, i, dtype):
+    _, weight, _, _, _, _ = site_case(sites[i], dtype, i)
+    cout, cin = weight.shape[:2]
+    packed = CV.pack_weight_tc(weight)
+    assert packed.shape == (9, cout, CV.padded_cin(cin))
+    assert packed.dtype == dtype and packed.is_contiguous()
+    assert packed.shape[2] % 16 == 0 and packed.shape[2] - cin < 16
+    assert torch.equal(CV.unpack_weight_tc(packed, cin), weight)
+    assert not packed[:, :, cin:].any()
+    for ky in range(3):
+        for kx in range(3):
+            assert torch.equal(packed[ky * 3 + kx, :, :cin],
+                               weight[:, :, ky, kx])
+
+
+@pytest.mark.parametrize("i", range(N_SITES))
+def test_packed_twin_equals_twin(sites, i):
+    xs, weight, bias, slope, stride, act = site_case(sites[i],
+                                                    torch.bfloat16, 20 + i)
+    packed = CV.pack_weight_tc(weight)
+    got = CV.conv3x3_packed_ref(xs, packed, bias, slope, stride=stride,
+                                act=act)
+    assert torch.equal(got, CV.conv3x3_ref(xs, weight, bias, slope,
+                                           stride=stride, act=act))
+
+
+def kernel_groups(cout, phase_o):
+    """The kernel's channel groups (``rife_conv3x3_tc``): at most 64
+    channels; a deconv's two groups are its two phase rows."""
+    n = (1 if cout <= 64 else 2) if phase_o else (cout + 63) // 64
+    size = (cout + n - 1) // n
+    assert size <= 64 and (not phase_o or n == 1 or size == 2 * phase_o)
+    return [(g * size, min(size, cout - g * size)) for g in range(n)]
+
+
+def mirror_store(y, phase_o, span):
+    """Place the (B, N, Ho, Wo) per-channel results (N phase channels for a
+    deconv) as the kernel's epilogue does: per channel group, per tile of
+    ``span`` output columns (16, the m16 rows of an MMA) and row, lanes of 8
+    output columns."""
+    b, n_ch, ho, wo = y.shape
+    if phase_o:
+        out = torch.full((b, phase_o, 2 * ho, 2 * wo), float("nan"))
+    else:
+        out = torch.full_like(y, float("nan"))
+    for g0, n_valid in kernel_groups(n_ch, phase_o):
+        for ox0 in range(0, wo, span):
+            for oy in range(ho):
+                ob = torch.zeros(b, 64, span)  # a warp's staged row
+                cols = min(span, wo - ox0)
+                ob[:, :n_valid, :cols] = y[:, g0:g0 + n_valid, oy,
+                                           ox0:ox0 + cols]
+                if not phase_o:
+                    vecs = span // 8
+                    for idx in range(n_valid * vecs):
+                        n, h = idx // vecs, idx % vecs
+                        x0 = ox0 + 8 * h
+                        k = min(8, wo - x0)
+                        if k > 0:
+                            out[:, g0 + n, oy, x0:x0 + k] = \
+                                ob[:, n, 8 * h:8 * h + k]
+                    continue
+                for idx in range((n_valid // 2) * (span // 4)):
+                    pair = g0 // 2 + idx // (span // 4)
+                    q = idx % (span // 4)
+                    py, o = pair // phase_o, pair % phase_o
+                    n0 = py * 2 * phase_o + o - g0
+                    n1 = n0 + phase_o
+                    col0 = 2 * ox0 + 8 * q
+                    for k in range(8):
+                        if col0 + k < 2 * wo:
+                            src = n1 if k & 1 else n0
+                            out[:, o, 2 * oy + py, col0 + k] = \
+                                ob[:, src, 4 * q + (k >> 1)]
+    return out
+
+
+@pytest.mark.parametrize("i", range(N_SITES))
+def test_kernel_store_addressing(sites, i):
+    """A mirror of the epilogue's index arithmetic writes every output once,
+    where ``conv3x3_ref`` / ``deconv4x4_ref`` put it; also at widths that
+    leave a ragged last tile."""
+    xs, weight, bias, slope, stride, act = site_case(sites[i],
+                                                    torch.float32, 40 + i)
+    deconv = sites[i][-1]
+    for cut in (0, 6):
+        xs_c = [x[..., :MINI_HW[1] - cut].contiguous() for x in xs]
+        y = CV.conv3x3_ref(xs_c, weight, bias, slope,
+                           stride=1 if deconv else stride, act=act)
+        if deconv:
+            got = mirror_store(y, weight.shape[0] // 4, 16)
+            want = CV.deconv4x4_ref(xs_c[0], weight, bias, slope, act=act)
+        else:
+            got, want = mirror_store(y, 0, 16), y
+        assert not torch.isnan(got).any()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("i", range(N_SITES))
+def test_deconv_twin_equals_interleaved_phase_conv(sites, i, dtype):
+    """At a deconv site the fused plain version equals what ``deconv4x4``
+    computed before (the phase conv, then ``interleave_phases``); at a conv
+    site the phase weights of a random transposed conv of its width give the
+    same identity, and in f32 both equal ``conv_transpose2d``."""
+    _, parts, cout, _, act, _, _, deconv = sites[i]
+    cin = sum(parts)
+    co = cout // 4 if deconv else max(1, cout // 8)
+    rng = np.random.default_rng(60 + i)
+    x = torch.from_numpy(rng.normal(size=(1, cin, 10, 18)).astype(
+        np.float32)).to(dtype)
+    raw = torch.from_numpy((rng.normal(size=(cin, co, 4, 4)) * 0.3).astype(
+        np.float32))
+    w3 = CV.deconv_phase_weights(raw).to(dtype)
+    bias = torch.from_numpy(np.tile(rng.normal(size=co), 4).astype(
+        np.float32))
+    slope = torch.from_numpy(np.tile(rng.uniform(0.05, 0.4, co), 4).astype(
+        np.float32))
+    got = CV.deconv4x4_ref(x, w3, bias, slope, act=act)
+    want = CV.interleave_phases(CV.conv3x3([x], w3, bias, slope, stride=1,
+                                           act=act))
+    assert torch.equal(got, want)
+    assert torch.equal(CV.deconv4x4(x, w3, bias, slope, act=act), got)
+    if dtype == torch.float32:
+        ref = F.conv_transpose2d(x, raw, bias[:co], stride=2, padding=1)
+        # the repo's f32 conv bar: 1e-5 of the largest output
+        torch.testing.assert_close(CV.deconv4x4_ref(x, w3, bias[:co].repeat(4)),
+                                   ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_session_weights_are_packed_once(tmp_path):
+    """``prepare_weights`` packs every 3x3 conv's weights and every planar
+    deconv's phase weights once; they unpack to the plain tensors."""
+    d = write_v23_params(tmp_path, (8, 8, 8, 8, 4))
+    sess = RIFE(str(d), device="cpu", dtype=torch.bfloat16)
+    n_conv = n_deconv = 0
+    for net, tree in sess.weights.items():
+        graph = sess.executors[net].graph
+        kinds = {n.name: n.type for n in graph.nodes}
+        for name, e in tree.items():
+            w = e.get("weight")
+            if kinds[name] in torch_ops._CONV_KINDS and w.shape[2:] == (3, 3):
+                assert torch.equal(
+                    CV.unpack_weight_tc(e["weight_tc"], w.shape[1]), w)
+                n_conv += 1
+            if "phase_weight" in e:
+                pw = e["phase_weight"]
+                assert torch.equal(
+                    CV.unpack_weight_tc(e["phase_weight_tc"], pw.shape[1]),
+                    pw)
+                n_deconv += 1
+    assert n_conv > 20 and n_deconv >= 4

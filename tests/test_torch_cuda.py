@@ -7,7 +7,9 @@ no CPU mode).  The file imports no jax, so it also runs where jax is absent:
 ``python -m pytest --noconftest tests/test_torch_cuda.py -m cuda``.
 Tolerances: those of tests/test_torch_warp.py for the warp kernels (f32 max
 |d| <= 2e-6; bf16 <= 1 ulp and exact on >= 99%), of tests/test_torch_conv.py
-for conv3x3 (f32 max |d| <= 1e-5 of the largest output; bf16 as the warps);
+for conv3x3 (f32 max |d| <= 1e-5 of the largest output; bf16 as the warps,
+the ulp taken of an output no smaller than 2^-14 of the sum of its absolute
+products: the tensor-core kernel sums in another order than the twin);
 for the slices, u8 max |d| <= 1 and exact on >= 99.9% of pixels (cuDNN sums
 in another order than the CPU).
 """
@@ -47,7 +49,11 @@ def launched():
     return {k: v for k, v in W.LAUNCHES.items() if v}
 
 
-def check(got, want, f32_rel=None):
+def check(got, want, f32_rel=None, scale=None):
+    """``scale`` (conv3x3): the sum of the absolute products of each output;
+    bf16 ulps are then taken of max(|want|, 2^-14 scale), since two f32 sums
+    in different orders differ by up to ~2^-23 scale, more than one ulp of
+    an output that cancels to near zero."""
     assert got.dtype == want.dtype and got.shape == want.shape
     diff = (got.float() - want.float()).abs().cpu()
     if want.dtype == torch.float32:
@@ -55,7 +61,10 @@ def check(got, want, f32_rel=None):
             want.abs().max())
         assert float(diff.max()) <= bound
     else:
-        r = want.float().abs().cpu().clamp_min(2.0 ** -126)
+        r = want.float().abs().cpu()
+        if scale is not None:
+            r = torch.maximum(r, scale.float().cpu() * 2.0 ** -14)
+        r = r.clamp_min(2.0 ** -126)
         assert bool((diff <= torch.pow(2.0, torch.floor(torch.log2(r)) - 7)).all())
         assert float((diff == 0).float().mean()) >= 0.99
 
@@ -186,8 +195,12 @@ def test_single_warp_kernel_matches_twins(cuda_device, b, c, h, w, dtype):
     ((32,), 32, 1, 3, 272, 480),
     ((3, 3, 4), 48, 2, 3, 544, 960),  # flownet block entry (3 parts)
     ((96,), 16, 1, 0, 68, 120),       # deconv phases
-    ((5,), 7, 1, 2, 33, 41),
+    ((5,), 7, 1, 2, 33, 41),          # odd Cin, unaligned width
     ((17, 9), 20, 2, 1, 18, 26),
+    ((192,), 16, 1, 3, 40, 64),       # the widest Cin of the v2.3 sites
+    ((3,), 48, 1, 3, 30, 62),         # Cout 48, W % 4 != 0
+    ((32,), 96, 2, 1, 64, 96),        # two channel groups
+    ((7, 3), 128, 2, 2, 22, 36),      # the widest group the gates admit
 ])
 def test_conv_kernel_matches_twin(cuda_device, parts, cout, stride, act, h,
                                   w, dtype):
@@ -200,17 +213,52 @@ def test_conv_kernel_matches_twin(cuda_device, parts, cout, stride, act, h,
     weight = t(rng.normal(size=(cout, sum(parts), 3, 3)) * 0.2, dtype)
     bias = t(rng.normal(size=cout), torch.float32)
     slope = t(rng.uniform(0, 0.5, cout), torch.float32)
+    packed = CV.pack_weight_tc(weight)
     CV.reset_launches()
-    got = CV.conv3x3(xs, weight, bias, slope, stride=stride, act=act)
+    got = CV.conv3x3(xs, weight, bias, slope, stride=stride, act=act,
+                     weight_tc=packed)
     want = CV.conv3x3_ref(xs, weight, bias, slope, stride=stride, act=act)
     torch.cuda.synchronize()
     assert CV.LAUNCHES == {"conv3x3": 1}
-    check(got, want, f32_rel=1e-5)
+    scale = CV.conv3x3_ref([x.float().abs() for x in xs],
+                           weight.float().abs(), stride=stride)
+    check(got, want, f32_rel=1e-5, scale=scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,co,h,w", [
+    (32, 4, 68, 120),    # a v2.3 fusionnet deconv site, mini size
+    (12, 24, 17, 30),    # two phase groups, W % 4 != 0
+    (9, 32, 20, 44),     # 128 phase channels
+    (5, 3, 9, 13),
+])
+def test_deconv_kernel_matches_twin(cuda_device, cin, co, h, w, dtype):
+    """The deconv form: in bf16 one launch writes the interleaved phases."""
+    from rife_tpu_torch.ops import conv as CV
+
+    rng = np.random.default_rng(12)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
+        device=cuda_device, dtype=dt).contiguous()
+    x = t(rng.normal(size=(2, cin, h, w)), dtype)
+    w3 = CV.deconv_phase_weights(torch.from_numpy(
+        rng.normal(size=(cin, co, 4, 4)).astype(np.float32) * 0.3))
+    w3 = w3.to(device=cuda_device, dtype=dtype).contiguous()
+    bias = t(np.tile(rng.normal(size=co), 4), torch.float32)
+    slope = t(np.tile(rng.uniform(0, 0.5, co), 4), torch.float32)
+    CV.reset_launches()
+    got = CV.deconv4x4(x, w3, bias, slope, act=CV.ACT_PRELU,
+                       phase_weight_tc=CV.pack_weight_tc(w3))
+    want = CV.deconv4x4_ref(x, w3, bias, slope, act=CV.ACT_PRELU)
+    torch.cuda.synchronize()
+    assert CV.LAUNCHES == {"conv3x3": 1}
+    check(got, want, f32_rel=1e-5,
+          scale=CV.deconv4x4_ref(x.float().abs(), w3.float().abs()))
 
 
 def test_failed_launch_raises(cuda_device):
-    """A launch the card refuses (grid z over 65535) raises; nothing runs a
-    twin in its place."""
+    """A launch the card refuses raises (f32: grid z over 65535; bf16: the
+    weights do not fit in shared memory); nothing runs a twin in its
+    place."""
     from rife_tpu_torch.ops import conv as CV
 
     x = torch.zeros(70000, 1, 2, 2, device=cuda_device)
@@ -220,6 +268,14 @@ def test_failed_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):
         CV.conv3x3([torch.zeros(4100, 1, 2, 2, device=cuda_device)],
                    torch.zeros(256, 1, 3, 3, device=cuda_device))
+    assert CV.LAUNCHES == {"conv3x3": 0}
+    bf = dict(device=cuda_device, dtype=torch.bfloat16)
+    w = torch.zeros(64, 512, 3, 3, **bf)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        CV.conv3x3([torch.zeros(1, 512, 8, 8, **bf)], w,
+                   weight_tc=CV.pack_weight_tc(w))
+    with pytest.raises(ValueError, match="weight_tc"):
+        CV.conv3x3([torch.zeros(1, 512, 8, 8, **bf)], w)
     assert CV.LAUNCHES == {"conv3x3": 0}
 
 

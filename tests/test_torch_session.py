@@ -164,9 +164,11 @@ def test_port_never_imports_jax(model_dir):
         "o = s.process_batch(a, a[:, ::-1].copy(), np.array([0.5], np.float32))\n"
         "assert o.shape == (1, 32, 32, 3)\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
+        "assert 'rife_tpu' not in sys.modules, 'rife_tpu was imported'\n"
         "print('ok')\n"
     )
-    env = {**os.environ, "PYTHONPATH": str(REPO)}
+    # one torch thread: the suite runs several test processes at once
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
     proc = subprocess.run([sys.executable, "-c", code, str(model_dir)],
                           capture_output=True, text=True, env=env,
                           timeout=300)
