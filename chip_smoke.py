@@ -11,14 +11,16 @@ and with ``-x -z`` TTA plus ``fuse_ds2``:
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
    in parallel);
 3. holds each kernel against its plain PyTorch twin on the card, in bf16 and
-   f32, and times both with CUDA events: the three u8 pair warps at B=2,
-   1088x1920 (plus an unaligned shape); ``warp_ds2`` (K3) at B=2 1088x1920,
-   the transposed 1920x1088 and an unaligned shape, timed beside the unfused
+   f32, and times both with CUDA events: the three u8 pair warps at the
+   B=8 1088x1920 of a step (the kernels' report) and at B=2 (plus an
+   unaligned shape); ``warp_ds2`` (K3) at B=8 and B=2 1088x1920, the
+   transposed 1920x1088 and an unaligned shape, timed beside the unfused
    form the graph runs without the switch (the ``warp_pair`` kernel, then
    ``resize2d``); ``warp_feat`` at the v2.3
    contextnet's four feature warps of a 1080p B=8 step (C=32..256, the batch
-   of 16 both frames make), an odd C and an unaligned size, raw flow and
-   absolute positions; ``warp_u8`` at the fusionnet's frame warps; and
+   of 16 both frames make; each level beside its own bound), an odd C and
+   an unaligned size, raw flow and absolute positions; ``warp_u8`` at the
+   fusionnet's frame warps; and
    ``conv3x3`` at every site the gates route at 1080p B=8 (the deconv sites
    through ``deconv4x4``, whose bf16 launch writes the interleaved phases),
    per site with cuDNN's bf16 time on the same call (``conv_transpose2d``
@@ -67,9 +69,10 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
+STEP_SHAPE = (8, 1088, 1920)  # the warps of one 1080p B=8 step
 MAIN_SHAPE = (2, 1088, 1920)
 ODD_SHAPE = (2, 52, 196)
-DS2_SHAPES = [MAIN_SHAPE, (2, 1920, 1088), ODD_SHAPE]
+DS2_SHAPES = [STEP_SHAPE, MAIN_SHAPE, (2, 1920, 1088), ODD_SHAPE]
 V46_CHECK = (1, 256, 448)
 V23_CHECK = (2, 544, 960)
 TTA_CHECK = (1, 256, 448)
@@ -267,11 +270,14 @@ def check_pair(report, name, kfn, tfn, args, dtype, label, timed,
 
 
 def phase_pair_kernels(device, rng, report):
-    """The u8 pair warps (K5-K7); times at MAIN_SHAPE, bf16."""
+    """The u8 pair warps (K5-K7): bf16 timed at STEP_SHAPE (the report) and
+    MAIN_SHAPE."""
     from rife_tpu_torch.ops import warp as W
 
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in (MAIN_SHAPE, ODD_SHAPE):
+        shapes = ((STEP_SHAPE, MAIN_SHAPE, ODD_SHAPE) if dtype == torch.bfloat16
+                  else (MAIN_SHAPE, ODD_SHAPE))
+        for shape in shapes:
             ia, fa, ib, fb, m = kernel_inputs(rng, shape, dtype, device)
             args = {"warp_pair": (ia, fa, ib, fb),
                     "warp_ds4_pair": (ia, fa, ib, fb),
@@ -282,29 +288,35 @@ def phase_pair_kernels(device, rng, report):
                 "warp_pair": nbytes(ia, fa, ib, fb) + 2 * nbytes(ia),
                 "warp_ds4_pair": (nbytes(ia, fa, ib, fb) + nbytes(ia) // 2) / 4,
                 "warp_render": nbytes(ia, fa, ib, fb, m) + nbytes(ia)}
+            timed = dtype == torch.bfloat16 and shape != ODD_SHAPE
             for name, (wrap, twin) in PAIR_KERNELS.items():
                 check_pair(report, name, getattr(W, wrap), getattr(W, twin),
-                           args[name], dtype, f"B,H,W={shape}",
-                           shape == MAIN_SHAPE and dtype == torch.bfloat16,
+                           args[name], dtype, f"B,H,W={shape}", timed,
+                           tally=shape == STEP_SHAPE,
                            bound=bound_ms(n_bytes[name]))
             del ia, fa, ib, fb, m, args
-    torch.cuda.empty_cache()
+            torch.cuda.empty_cache()
 
 
 def phase_warp_ds2(device, rng, report):
-    """``warp_ds2`` (K3) at DS2_SHAPES in bf16 and f32; at MAIN_SHAPE bf16 it
-    is timed against its twin, and a block entry's two fused warps against
-    the unfused form on the same inputs (one ``warp_pair`` launch, then
-    ``resize2d`` of each warp)."""
+    """``warp_ds2`` (K3) at DS2_SHAPES in bf16 and f32 (STEP_SHAPE in bf16
+    only); bf16 at STEP_SHAPE (the report) and MAIN_SHAPE it is timed
+    against its twin, and at MAIN_SHAPE a block entry's two fused warps
+    against the unfused form on the same inputs (one ``warp_pair`` launch,
+    then ``resize2d`` of each warp)."""
     from rife_tpu_torch.ops import warp as W
     from rife_tpu_torch.ops.torch_ops import resize2d
 
     for dtype in (torch.bfloat16, torch.float32):
         for shape in DS2_SHAPES:
+            if dtype == torch.float32 and shape == STEP_SHAPE:
+                continue
             ia, fa, ib, fb, _ = kernel_inputs(rng, shape, dtype, device)
             main = shape == MAIN_SHAPE and dtype == torch.bfloat16
             check_pair(report, "warp_ds2", W.warp_ds2, W.warp_ds2_ref,
-                       (ia, fa), dtype, f"B,H,W={shape}", main,
+                       (ia, fa), dtype, f"B,H,W={shape}",
+                       main or shape == STEP_SHAPE,
+                       tally=shape == STEP_SHAPE,
                        bound=bound_ms(nbytes(ia, fa) + nbytes(ia) / 4))
             if main:
                 h, w = shape[1], shape[2]
@@ -344,19 +356,29 @@ def phase_single_warp(device, rng, report):
     b2 = 2 * BENCH[0]
     for dtype in (torch.bfloat16, torch.float32):
         timed = dtype == torch.bfloat16
+        levels = [0.0, 0.0]
         for c, h, w in FEAT_SHAPES:
             img = torch.randn(b2, c, h, w, device=device).mul_(2).to(dtype)
             flow = smooth_flow(rng, b2, h, w, dtype, device, shift=6.0)
             # f32 (K1's form) is timed too, the report keeps bf16 (K2's);
             # the library call: grid_sample on a grid built beforehand
             grid = sample_grid(flow)
-            check_pair(report, "warp_feat", W.warp_feat, W.warp_feat_ref,
-                       (img, flow), dtype, f"B,C,H,W={(b2, c, h, w)}", True,
-                       tally=timed,
-                       bound=bound_ms(nbytes(img, flow) + nbytes(img)),
-                       library=lambda: torch.nn.functional.grid_sample(
-                           img, grid, mode="bilinear", padding_mode="border",
-                           align_corners=True))
+            bound = bound_ms(nbytes(img, flow) + nbytes(img))
+            ms, _ = check_pair(
+                report, "warp_feat", W.warp_feat, W.warp_feat_ref,
+                (img, flow), dtype, f"B,C,H,W={(b2, c, h, w)}", True,
+                tally=timed, bound=bound,
+                library=lambda: torch.nn.functional.grid_sample(
+                    img, grid, mode="bilinear", padding_mode="border",
+                    align_corners=True))
+            levels[0] += ms
+            levels[1] += bound[0]
+            print(f"  level C={c} {h}x{w}: kernel {ms:.4f} ms, bound "
+                  f"{bound[0]:.4f} ms, {100 * bound[0] / ms:.1f}% of it",
+                  flush=True)
+        print(f"warp_feat {str(dtype)[6:]} over the four levels of a step: "
+              f"kernel {levels[0]:.4f} ms, bound {levels[1]:.4f} ms, "
+              f"{100 * levels[1] / levels[0]:.1f}% of it", flush=True)
         for b, c, h, w in FEAT_EXTRA:
             img = torch.randn(b, c, h, w, device=device).to(dtype)
             flow = smooth_flow(rng, b, h, w, dtype, device)
@@ -368,10 +390,9 @@ def phase_single_warp(device, rng, report):
                        lambda i, p: W.warp_feat_ref(i, p, abs_pos=True),
                        (img, pos), dtype, f"abs_pos B,C,Ho,Wo={(b, c, *pos.shape[2:])}",
                        False)
-        b, h, w = BENCH[0], 1088, 1920
-        ia, fa, _, _, _ = kernel_inputs(rng, (b, h, w), dtype, device)
+        ia, fa, _, _, _ = kernel_inputs(rng, STEP_SHAPE, dtype, device)
         check_pair(report, "warp_u8", W.warp_u8, W.warp_u8_ref, (ia, fa),
-                   dtype, f"B,H,W={(b, h, w)}", timed,
+                   dtype, f"B,H,W={STEP_SHAPE}", timed,
                    bound=bound_ms(nbytes(ia, fa) + nbytes(ia)))
         ia, fa, _, _, _ = kernel_inputs(rng, ODD_SHAPE, dtype, device)
         check_pair(report, "warp_u8",

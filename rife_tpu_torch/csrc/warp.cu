@@ -32,26 +32,44 @@
 // play no part.  Per output pixel and image a thread reads the 2 flow values
 // (4 B in bf16), gathers 4 corners x 3 planes (24 B in bf16, at positions the
 // flow decides) and writes 3 values (6 B); the ds4 form gathers 4 taps of that
-// per 1/4-resolution pixel.  At 1088x1920, B=8, bf16 that is ~0.7 GB of traffic
-// per pair launch, ~0.2 ms at the 3.35 TB/s peak, if the gathers hit.  The ds2
-// form gathers as much as a full-resolution warp (the 1/2 downsample reads
-// every warped pixel) but writes a quarter of it and no full-resolution
-// intermediate: per half-resolution pixel 4 x 4 B of flow, 4 x 12 corner
-// gathers and 6 B of output in bf16.
+// per 1/4-resolution pixel.  Counted once each (the bound), a u8 pair warp at
+// 1088x1920, B=8, bf16 moves ~0.53 GB: 0.16 ms at 3.35 TB/s.  The ds2 form
+// gathers as much as a full-resolution warp (the 1/2 downsample reads every
+// warped pixel) but writes a quarter of it and no full-resolution
+// intermediate.  What keeps a kernel off that bound is latency: a thread
+// loads its flow, waits, then gathers at addresses the flow decides, mostly
+// served by L1 (__ldg measured fastest of the load paths tried).
 //
-// What the design does about it: one thread per output pixel handles every
-// channel, so the corner indices and weights are computed once and reused for
-// the three planes.  Threads of a warp cover 32 neighbouring x on one row, so
-// the flow reads and output writes coalesce, and for smooth flows the corner
-// gathers of neighbouring threads fall on the same or adjacent lines and are
-// served by L1/L2 (__ldg, read-only path).  None of the TPU machinery carries
-// over: no u8-quad lane packing, no band/slab/sheared staging, no VMEM
-// stripes -- those exist because a TPU has no gather unit.  The single warp
-// keeps that shape for any C: the position, corners and weights are computed
-// once per pixel, then a loop over the C planes gathers and writes each
-// channel (the channel-shared index of the TPU's mc kernel, without its
-// packing of two bf16 channels per word).  A contextnet feature warp at 1080p
-// B=16 (C=32, 272x480) reads ~4 B of flow and gathers 4 x 32 x 2 B per pixel.
+// K1/K2/K4/K5 (warp_gather_kernel; PERF.md gives the times of each choice
+// below against the others on the card):
+// - the time falls with the warps an SM holds, so the launch bound holds the
+//   kernel to 32 registers (u8 modes, 8 blocks of 256 threads an SM) or 40
+//   (float mode, 6 blocks); a prefetch of the next tile's flow by persistent
+//   blocks, more gathers in flight per thread (two channels at a time) and
+//   floor/round kept off the conversion unit each cost registers and gained
+//   nothing;
+// - u8 modes (K4, K5 = the same kernel over 2B images): two adjacent output
+//   pixels a thread, flow loads and output stores as 2-element vectors;
+// - float mode (K1, K2): one pixel a thread (two cost registers), and the
+//   grid covers (pixel tile, channel group, image), so the narrow deep
+//   contextnet levels (C=256 at 34x60) fill the card; tiles 16 wide and 16
+//   tall, whose rows share more source rows in L1 than wide flat tiles;
+// - the vector path is a template constant: a branch on it inside the
+//   channel loop cost a quarter of the float mode's time;
+// - every gather goes to device memory, served mostly by L1.  Staging the
+//   block's corner window in shared memory (the u8 modes as one 32-bit word
+//   of three u8 values per source pixel, the TPU's _chan_u8 word, each
+//   sample converted once; the float mode through two cp.async buffers) was
+//   slower on every shape: the block-wide bounding-box reduction, the
+//   barriers and windows of ~2x the tile's pixels cost more than the
+//   conversions and L1 gathers they save.
+//
+// K3/K6/K7 keep one thread per output pixel handling every channel: the
+// corner indices and weights are computed once and reused for the three
+// planes; threads of a warp cover 32 neighbouring x on one row, so flow reads
+// and output writes coalesce and smooth flows' corner gathers hit L1/L2.
+// None of the TPU's band/slab/sheared staging or VMEM stripes carries over:
+// those exist because a TPU has no gather unit.
 //
 // Rounding: every f32 operation uses the _rn intrinsics, so nvcc cannot
 // contract a multiply and an add into an FMA, and the result follows the twin's
@@ -134,26 +152,6 @@ __device__ __forceinline__ Corners flow_corners(const T* flow, size_t plane,
   float sx = __fadd_rn(static_cast<float>(x), ldf(flow + p));
   float sy = __fadd_rn(static_cast<float>(y), ldf(flow + plane + p));
   return corners(sx, sy, h, w);
-}
-
-// K5: grid.z = 2*B; even z warps image a, odd z image b, of batch item z/2.
-template <typename T>
-__global__ void warp_pair_kernel(const T* __restrict__ img_a, const T* __restrict__ flow_a,
-                                 const T* __restrict__ img_b, const T* __restrict__ flow_b,
-                                 T* __restrict__ out_a, T* __restrict__ out_b, int h, int w) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  int b = blockIdx.z >> 1;
-  bool second = blockIdx.z & 1;
-  size_t plane = static_cast<size_t>(h) * w;
-  const T* img = (second ? img_b : img_a) + 3 * plane * b;
-  const T* flow = (second ? flow_b : flow_a) + 2 * plane * b;
-  T* out = (second ? out_b : out_a) + 3 * plane * b;
-  Corners k = flow_corners(flow, plane, x, y, h, w);
-  size_t p = static_cast<size_t>(y) * w + x;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) out[c * plane + p] = store<T>(sample(img + c * plane, k));
 }
 
 // K6: both warps, then o = st*m + wi*(1-m) in the storage dtype; out (B,H,3,W).
@@ -264,43 +262,115 @@ __global__ void warp_ds2_kernel(const T* __restrict__ img, const T* __restrict__
   }
 }
 
-// K1/K2: ((v00*w00 + v01*w01) + v10*w10) + v11*w11 in f32 -- the Pallas
-// kernels' order where the four corners fall in one lane tile
-template <typename T>
-__device__ __forceinline__ float sample_feat(const T* plane, const Corners& k) {
-  float acc = __fmul_rn(ldf(plane + k.i00), k.w00);
-  acc = __fadd_rn(acc, __fmul_rn(ldf(plane + k.i01), k.w01));
-  acc = __fadd_rn(acc, __fmul_rn(ldf(plane + k.i10), k.w10));
-  return __fadd_rn(acc, __fmul_rn(ldf(plane + k.i11), k.w11));
+// ---------------------------------------------------------------------------
+// K1/K2/K4/K5
+// ---------------------------------------------------------------------------
+
+// ((v00*w00 + v01*w01) + v10*w10) + v11*w11 in f32 -- the Pallas kernels'
+// order where the four corners fall in one lane tile
+__device__ __forceinline__ float feat_sum(float v00, float v01, float v10, float v11,
+                                          float w00, float w01, float w10, float w11) {
+  float acc = __fmul_rn(v00, w00);
+  acc = __fadd_rn(acc, __fmul_rn(v01, w01));
+  acc = __fadd_rn(acc, __fmul_rn(v10, w10));
+  return __fadd_rn(acc, __fmul_rn(v11, w11));
 }
 
-// K1/K2/K4: one warp of a (B,C,H,W) image.  Output pixel (x, y) of the
-// (Ho,Wo) grid samples at (x, y) + flow(x, y) (flow of type P = T), or at the
-// absolute position pos(x, y) (P = float); one cast to T per channel.
-template <typename T, typename P, bool kAbs, bool kU8>
-__global__ void warp_single_kernel(const T* __restrict__ img, const P* __restrict__ pos,
-                                   T* __restrict__ out, int c, int h, int w, int ho,
-                                   int wo) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= wo || y >= ho) return;
-  int b = blockIdx.z;
-  size_t plane_o = static_cast<size_t>(ho) * wo;
-  size_t plane = static_cast<size_t>(h) * w;
-  size_t p = static_cast<size_t>(y) * wo + x;
-  const P* pb = pos + 2 * plane_o * b;
-  float sx = ldf(pb + p), sy = ldf(pb + plane_o + p);
-  if (!kAbs) {
-    sx = __fadd_rn(static_cast<float>(x), sx);
-    sy = __fadd_rn(static_cast<float>(y), sy);
+template <typename T> struct Two;
+template <> struct Two<float> { using type = float2; };
+template <> struct Two<__nv_bfloat16> { using type = __nv_bfloat162; };
+
+// values at p and p+1 (n == 2) or at p alone
+template <typename T>
+__device__ __forceinline__ float2 ld2(const T* p, int n, bool vec) {
+  if (n == 2 && vec) {
+    typename Two<T>::type v = __ldg(reinterpret_cast<const typename Two<T>::type*>(p));
+    return make_float2(to_f(v.x), to_f(v.y));
   }
-  Corners k = corners(sx, sy, h, w);
-  const T* src = img + plane * c * b;
-  T* dst = out + plane_o * c * b + p;
-  for (int ch = 0; ch < c; ++ch) {
-    const T* pl = src + plane * ch;
-    float v = kU8 ? sample(pl, k) : sample_feat(pl, k);
-    dst[plane_o * ch] = store<T>(v);
+  return make_float2(ldf(p), n == 2 ? ldf(p + 1) : 0.0f);
+}
+
+__device__ __forceinline__ float2 two_of(float a, float b, float) { return make_float2(a, b); }
+__device__ __forceinline__ __nv_bfloat162 two_of(float a, float b, __nv_bfloat16) {
+  return __floats2bfloat162_rn(a, b);
+}
+
+// v[0] at p and v[1] at p+1 (n == 2), or v[0] alone
+template <typename T>
+__device__ __forceinline__ void st2(T* p, const float* v, int n, bool vec) {
+  if (n == 2 && vec) {
+    *reinterpret_cast<typename Two<T>::type*>(p) = two_of(v[0], v[1], T());
+    return;
+  }
+  p[0] = store<T>(v[0]);
+  if (n == 2) p[1] = store<T>(v[1]);
+}
+
+// K1/K2/K4/K5; why it is shaped so: the header note.  The launch bound holds
+// the kernel to 8 (u8) or 6 (float) blocks of 256 threads an SM, 32 or 40
+// registers.
+//
+// A block owns a tile of output pixels, PX adjacent x a thread: u8 modes
+// (C == 3, one group, K4/K5) two, float mode (K1/K2) one.  kVec (u8 modes,
+// Wo even, rows aligned): both pixels lie in the grid, flow/position loads
+// and output stores are 2-element vectors; otherwise scalar, and a second
+// pixel past the right edge (odd Wo) gathers at clamped corners and is not
+// stored.  Grid y covers (row tile, channel group), the group fastest; grid
+// z the images (pair != 0: 2B of them, even z image a and odd z image b of
+// batch item z/2).  Output pixel (x, y) of the (Ho,Wo) grid samples at
+// (x, y) + flow(x, y) (flow of type P = T), or at the absolute position
+// pos(x, y) (P = float).  u8: per channel the two pixels' gathers and u8
+// sums.  Float: the group's channels one at a time, the four gathers issued
+// before the sum, one cast to T per channel; the groups let the narrow deep
+// contextnet levels (C=256 at 34x60) fill the card.
+template <typename T, typename P, bool kAbs, bool kU8, bool kVec>
+__global__ void __launch_bounds__(256, kU8 ? 8 : 6) warp_gather_kernel(
+    const T* __restrict__ img_a, const P* __restrict__ pos_a, T* __restrict__ out_a,
+    const T* __restrict__ img_b, const P* __restrict__ pos_b, T* __restrict__ out_b, int pair,
+    int c, int group, int ngroups, int h, int w, int ho, int wo) {
+  constexpr int PX = kU8 ? 2 : 1;
+  static_assert(kU8 || !kVec, "vectors need two pixels a thread");
+  if constexpr (kU8) c = 3, ngroups = 1;
+  int x = PX * (blockIdx.x * blockDim.x + threadIdx.x);
+  int y = (blockIdx.y / ngroups) * blockDim.y + threadIdx.y;
+  if (y >= ho || x >= wo) return;
+  const int n = PX == 1 ? 1 : kVec ? 2 : min(2, wo - x);
+  int b = pair ? blockIdx.z >> 1 : blockIdx.z;
+  bool second = pair && (blockIdx.z & 1);
+  size_t plane = static_cast<size_t>(h) * w;
+  size_t plane_o = static_cast<size_t>(ho) * wo;
+  size_t p = static_cast<size_t>(y) * wo + x;
+  const P* pos = (second ? pos_b : pos_a) + 2 * plane_o * b + p;
+  float2 sx = ld2(pos, n, kVec), sy = ld2(pos + plane_o, n, kVec);
+  if (!kAbs) {
+    sx.x = __fadd_rn(static_cast<float>(x), sx.x);
+    sx.y = __fadd_rn(static_cast<float>(x + 1), sx.y);
+    sy.x = __fadd_rn(static_cast<float>(y), sy.x);
+    sy.y = __fadd_rn(static_cast<float>(y), sy.y);
+  }
+  Corners k[PX];
+  k[0] = corners(sx.x, sy.x, h, w);
+  if constexpr (PX == 2) k[1] = corners(sx.y, sy.y, h, w);
+  const T* img = (second ? img_b : img_a) + plane * c * b;
+  T* out = (second ? out_b : out_a) + plane_o * c * b + p;
+  if constexpr (kU8) {
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+      float v[PX];
+#pragma unroll
+      for (int i = 0; i < PX; ++i) v[i] = sample(img + ch * plane, k[i]);
+      st2(out + ch * plane_o, v, n, kVec);
+    }
+  } else {
+    int g = blockIdx.y % ngroups;
+    int c1 = min(c, (g + 1) * group);
+    for (int ch = g * group; ch < c1; ++ch) {
+      const T* pl = img + ch * plane;
+      float v00 = ldf(pl + k[0].i00), v01 = ldf(pl + k[0].i01);
+      float v10 = ldf(pl + k[0].i10), v11 = ldf(pl + k[0].i11);
+      out[ch * plane_o] =
+          store<T>(feat_sum(v00, v01, v10, v11, k[0].w00, k[0].w01, k[0].w10, k[0].w11));
+    }
   }
 }
 
@@ -310,19 +380,63 @@ inline dim3 grid_for(int w, int h, int z) {
   return dim3((w + kBx - 1) / kBx, (h + kBy - 1) / kBy, z);
 }
 
-template <typename T, bool kU8>
-void launch_single(const void* img, const void* pos, void* out, int batch, int c, int h,
-                   int w, int ho, int wo, int abs_pos, cudaStream_t s) {
-  dim3 grid = grid_for(wo, ho, batch), block(kBx, kBy);
-  if (abs_pos) {
-    warp_single_kernel<T, float, true, kU8><<<grid, block, 0, s>>>(
-        static_cast<const T*>(img), static_cast<const float*>(pos), static_cast<T*>(out),
-        c, h, w, ho, wo);
-  } else {
-    warp_single_kernel<T, T, false, kU8><<<grid, block, 0, s>>>(
-        static_cast<const T*>(img), static_cast<const T*>(pos), static_cast<T*>(out), c,
-        h, w, ho, wo);
+inline bool aligned(const void* p, size_t a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
+}
+
+// one launch's operands: images, flows/positions and outputs of image a and
+// (pair != 0) image b; `group` channels a block in float mode; a block's
+// tile of tile_w x tile_h output pixels
+struct Launch {
+  const void *img_a, *pos_a;
+  void* out_a;
+  const void *img_b, *pos_b;
+  void* out_b;
+  int pair, batch, c, h, w, ho, wo, group, tile_w, tile_h;
+  cudaStream_t s;
+};
+
+// a tile of whole warps of at most 256 threads (the launch bound), px
+// output pixels a thread
+inline bool tile_ok(int tile_w, int tile_h, int px) {
+  int threads = tile_w / px * tile_h;
+  return tile_w % px == 0 && tile_h >= 1 && threads > 0 && threads % 32 == 0 &&
+         threads <= 256;
+}
+
+template <typename T, typename P, bool kAbs, bool kU8, bool kVec>
+void launch_gather(const Launch& a) {
+  constexpr int PX = kU8 ? 2 : 1;
+  int ngroups = kU8 ? 1 : (a.c + a.group - 1) / a.group;
+  dim3 grid((a.wo + a.tile_w - 1) / a.tile_w, ((a.ho + a.tile_h - 1) / a.tile_h) * ngroups,
+            a.pair ? 2 * a.batch : a.batch);
+  warp_gather_kernel<T, P, kAbs, kU8, kVec><<<grid, dim3(a.tile_w / PX, a.tile_h), 0, a.s>>>(
+      static_cast<const T*>(a.img_a), static_cast<const P*>(a.pos_a), static_cast<T*>(a.out_a),
+      static_cast<const T*>(a.img_b), static_cast<const P*>(a.pos_b), static_cast<T*>(a.out_b),
+      a.pair, a.c, a.group, ngroups, a.h, a.w, a.ho, a.wo);
+}
+
+// One launch of K1/K2 (kU8 false) or K4/K5 (kU8 true; pair != 0: K5); the
+// u8 modes take the vector path where Wo is even and every flow/position and
+// output is aligned to two elements.
+template <typename T, typename P, bool kAbs, bool kU8>
+void launch_warp(const Launch& a) {
+  if constexpr (kU8) {
+    if (a.wo % 2 == 0 && aligned(a.pos_a, 2 * sizeof(P)) && aligned(a.pos_b, 2 * sizeof(P)) &&
+        aligned(a.out_a, 2 * sizeof(T)) && aligned(a.out_b, 2 * sizeof(T))) {
+      launch_gather<T, P, kAbs, true, true>(a);
+      return;
+    }
   }
+  launch_gather<T, P, kAbs, kU8, false>(a);
+}
+
+template <typename T, typename P, bool kAbs>
+void launch_single(const Launch& a, int u8) {
+  if (u8)
+    launch_warp<T, P, kAbs, true>(a);
+  else
+    launch_warp<T, P, kAbs, false>(a);
 }
 
 }  // namespace
@@ -332,24 +446,18 @@ void launch_single(const void* img, const void* pos, void* out, int batch, int c
 // Each returns cudaGetLastError() right after its launch.
 extern "C" {
 
+// K5.  tile_w x tile_h: a block's tile of output pixels, two a thread, in
+// whole warps of at most 256 threads.
 int rife_warp_pair(const void* img_a, const void* flow_a, const void* img_b,
                    const void* flow_b, void* out_a, void* out_b, int batch, int h, int w,
-                   int bf16, void* stream) {
-  dim3 grid = grid_for(w, h, 2 * batch), block(kBx, kBy);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    warp_pair_kernel<T><<<grid, block, 0, s>>>(
-        static_cast<const T*>(img_a), static_cast<const T*>(flow_a),
-        static_cast<const T*>(img_b), static_cast<const T*>(flow_b), static_cast<T*>(out_a),
-        static_cast<T*>(out_b), h, w);
-  } else {
-    using T = float;
-    warp_pair_kernel<T><<<grid, block, 0, s>>>(
-        static_cast<const T*>(img_a), static_cast<const T*>(flow_a),
-        static_cast<const T*>(img_b), static_cast<const T*>(flow_b), static_cast<T*>(out_a),
-        static_cast<T*>(out_b), h, w);
-  }
+                   int bf16, int tile_w, int tile_h, void* stream) {
+  if (!tile_ok(tile_w, tile_h, 2)) return static_cast<int>(cudaErrorInvalidValue);
+  Launch a{img_a, flow_a, out_a, img_b, flow_b, out_b, 1, batch, 3, h, w, h, w, 3,
+           tile_w, tile_h, static_cast<cudaStream_t>(stream)};
+  if (bf16)
+    launch_warp<__nv_bfloat16, __nv_bfloat16, false, true>(a);
+  else
+    launch_warp<float, float, false, true>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,18 +526,26 @@ int rife_warp_ds2(const void* img, const void* flow, void* out, int batch, int h
 // img (B,C,H,W); pos a raw flow (B,2,H,W) in the image dtype (abs_pos == 0,
 // then Ho == H, Wo == W) or float32 absolute positions (B,2,Ho,Wo); out
 // (B,C,Ho,Wo).  u8 != 0 samples round(clip(v,0,1)*255) and scales by 1/255
-// (K4; C == 3).
+// (K4; C == 3; two output pixels a thread); else the float mode (K1/K2; one
+// pixel a thread, `group` channels a block).  tile_w x tile_h as for
+// rife_warp_pair.
 int rife_warp_single(const void* img, const void* pos, void* out, int batch, int c, int h,
-                     int w, int ho, int wo, int abs_pos, int u8, int bf16, void* stream) {
-  if (!abs_pos && (ho != h || wo != w)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    if (u8) launch_single<__nv_bfloat16, true>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
-    else launch_single<__nv_bfloat16, false>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
-  } else {
-    if (u8) launch_single<float, true>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
-    else launch_single<float, false>(img, pos, out, batch, c, h, w, ho, wo, abs_pos, s);
-  }
+                     int w, int ho, int wo, int abs_pos, int u8, int bf16, int tile_w,
+                     int tile_h, int group, void* stream) {
+  if ((!abs_pos && (ho != h || wo != w)) || (u8 && c != 3) || group < 1 ||
+      !tile_ok(tile_w, tile_h, u8 ? 2 : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch a{img, pos, out, img, pos, out, 0, batch, c, h, w, ho, wo, u8 ? 3 : group,
+           tile_w, tile_h, static_cast<cudaStream_t>(stream)};
+  using B = __nv_bfloat16;
+  if (bf16 && abs_pos)
+    launch_single<B, float, true>(a, u8);
+  else if (bf16)
+    launch_single<B, B, false>(a, u8);
+  else if (abs_pos)
+    launch_single<float, float, true>(a, u8);
+  else
+    launch_single<float, float, false>(a, u8);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -101,16 +101,21 @@ def _stale() -> bool:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("rife_warp_pair", "rife_warp_render", "rife_warp_ds4_pair"):
+    for name in ("rife_warp_render", "rife_warp_ds4_pair"):
         fn = getattr(lib, name)
         # 6 tensor pointers, batch, height, width, bf16 flag, stream
         fn.argtypes = [vp] * 6 + [i, i, i, i, vp]
         fn.restype = i
+    # 6 tensor pointers, batch, height, width, bf16 flag, tile width and
+    # height, stream
+    lib.rife_warp_pair.argtypes = [vp] * 6 + [i] * 6 + [vp]
+    lib.rife_warp_pair.restype = i
     # image, flow, out; batch, height, width, bf16 flag, stream
     lib.rife_warp_ds2.argtypes = [vp] * 3 + [i, i, i, i, vp]
     lib.rife_warp_ds2.restype = i
-    # image, flow/positions, out; batch, C, H, W, Ho, Wo, abs_pos, u8, bf16
-    lib.rife_warp_single.argtypes = [vp] * 3 + [i] * 9 + [vp]
+    # image, flow/positions, out; batch, C, H, W, Ho, Wo, abs_pos, u8, bf16,
+    # tile width and height, channel group, stream
+    lib.rife_warp_single.argtypes = [vp] * 3 + [i] * 12 + [vp]
     lib.rife_warp_single.restype = i
     # f32: 4 part pointers, 4 channel counts, weight, bias, slope, out;
     # batch, H, W, Cout, stride, activation, alpha, stream

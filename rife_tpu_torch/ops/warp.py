@@ -55,6 +55,11 @@ float32 ``(sx, sy)``; ``warp_render`` takes the mask as (B,H,W) and writes
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+
+The tiled kernels (``warp_pair``, ``warp_u8``, ``warp_feat``) take their
+tiles and channel groups from the module constants below at each call;
+tests/test_torch_warp_tiled.py mirrors their addressing on the CPU with the
+same values, and the card tests run them at these and at other tiles.
 """
 
 from __future__ import annotations
@@ -66,6 +71,17 @@ import torch
 from ..native import build
 
 INV255 = 1.0 / 255.0  # used as f32(1/255), as the Pallas kernels do
+
+# K4/K5 (u8 modes): a block owns TILE_W x TILE_H output pixels, two
+# adjacent x a thread; K1/K2 (float mode): FEAT_TILE_W x FEAT_TILE_H, one a
+# thread.  A block is whole warps of at most 256 threads.  Float mode: a
+# tile's C channels split into the fewest groups, a power of two of them,
+# that bring the output pixels times groups to FEAT_THREADS, each of at
+# least FEAT_MIN_GROUP channels (feat_group).
+TILE_W, TILE_H = 64, 8
+FEAT_TILE_W, FEAT_TILE_H = 16, 16
+FEAT_THREADS = 2_000_000
+FEAT_MIN_GROUP = 8
 
 LAUNCHES = {"warp_pair": 0, "warp_render": 0, "warp_ds4_pair": 0,
             "warp_feat": 0, "warp_u8": 0, "warp_ds2": 0}
@@ -257,11 +273,10 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def _launch(fn_name: str, tensors, b: int, h: int, w: int, code: int,
-            device: torch.device) -> None:
+def _launch(fn_name: str, tensors, ints, device: torch.device) -> None:
     lib = build.load()
     stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*[_ptr(t) for t in tensors], b, h, w, code,
+    rc = getattr(lib, fn_name)(*[_ptr(t) for t in tensors], *ints,
                                ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{fn_name}: CUDA error {rc} "
@@ -276,7 +291,7 @@ def warp_pair(img_a, flow_a, img_b, flow_b):
     out_a = torch.empty_like(img_a)
     out_b = torch.empty_like(img_b)
     _launch("rife_warp_pair", [img_a, flow_a, img_b, flow_b, out_a, out_b],
-            b, h, w, code, img_a.device)
+            (b, h, w, code, TILE_W, TILE_H), img_a.device)
     LAUNCHES["warp_pair"] += 1
     return out_a, out_b
 
@@ -289,7 +304,7 @@ def warp_render(img_m, flow_m, img_i, flow_i, mask):
     b, h, w, code = _check([img_m, img_i], [flow_m, flow_i], mask)
     out = torch.empty((b, h, 3, w), dtype=img_m.dtype, device=img_m.device)
     _launch("rife_warp_render", [img_m, flow_m, img_i, flow_i, mask, out],
-            b, h, w, code, img_m.device)
+            (b, h, w, code), img_m.device)
     LAUNCHES["warp_render"] += 1
     return out
 
@@ -307,7 +322,7 @@ def warp_ds4_pair(img_a, flow_a, img_b, flow_b):
     out_a = torch.empty(shape, dtype=img_a.dtype, device=img_a.device)
     out_b = torch.empty(shape, dtype=img_b.dtype, device=img_b.device)
     _launch("rife_warp_ds4_pair", [img_a, flow_a, img_b, flow_b, out_a, out_b],
-            b, h, w, code, img_a.device)
+            (b, h, w, code), img_a.device)
     LAUNCHES["warp_ds4_pair"] += 1
     return out_a, out_b
 
@@ -322,7 +337,7 @@ def warp_ds2(img, flow):
         raise ValueError(f"warp_ds2 needs even H and W, got {h}x{w}")
     out = torch.empty((b, 3, h // 2, w // 2), dtype=img.dtype,
                       device=img.device)
-    _launch("rife_warp_ds2", [img, flow, out], b, h, w, code, img.device)
+    _launch("rife_warp_ds2", [img, flow, out], (b, h, w, code), img.device)
     LAUNCHES["warp_ds2"] += 1
     return out
 
@@ -352,19 +367,28 @@ def _check_single(img, pos, abs_pos: bool):
     return b, c, h, w, pos.shape[2], pos.shape[3], _DTYPE_CODE[img.dtype]
 
 
+def feat_group(b: int, c: int, ho: int, wo: int) -> int:
+    """Channels a block of the float mode takes: all C where the B x Ho x Wo
+    output pixels reach FEAT_THREADS, else C split into the fewest groups, a
+    power of two of them, that bring the pixels times groups to it, while a
+    group keeps at least FEAT_MIN_GROUP channels."""
+    groups = 1
+    while (groups * b * ho * wo < FEAT_THREADS
+           and c // (2 * groups) >= FEAT_MIN_GROUP):
+        groups *= 2
+    return -(-c // groups)
+
+
 def _warp_single(name: str, img, pos, abs_pos: bool, u8: bool):
     b, c, h, w, ho, wo, code = _check_single(img, pos, abs_pos)
     if u8 and c != 3:
         raise ValueError(f"the u8-origin warp takes 3 channels, got {c}")
     out = torch.empty((b, c, ho, wo), dtype=img.dtype, device=img.device)
-    lib = build.load()
-    stream = torch.cuda.current_stream(img.device).cuda_stream
-    rc = lib.rife_warp_single(_ptr(img), _ptr(pos), _ptr(out), b, c, h, w, ho,
-                              wo, int(abs_pos), int(u8), code,
-                              ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"rife_warp_single: CUDA error {rc} "
-                           f"({build.error_string(rc)})")
+    tile = (TILE_W, TILE_H) if u8 else (FEAT_TILE_W, FEAT_TILE_H)
+    group = 3 if u8 else feat_group(b, c, ho, wo)
+    _launch("rife_warp_single", [img, pos, out],
+            (b, c, h, w, ho, wo, int(abs_pos), int(u8), code, *tile, group),
+            img.device)
     LAUNCHES[name] += 1
     return out
 

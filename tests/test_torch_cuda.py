@@ -189,6 +189,102 @@ def test_single_warp_kernel_matches_twins(cuda_device, b, c, h, w, dtype):
         check(g, r)
 
 
+TILINGS = {  # ops/warp.py settings: the defaults, other tile shapes (flat
+    # and wide, tall and narrow), and one channel group in float mode
+    "default": {},
+    "flat": {"TILE_W": 128, "TILE_H": 2, "FEAT_TILE_W": 32, "FEAT_TILE_H": 8},
+    "tall": {"TILE_W": 16, "TILE_H": 16, "FEAT_TILE_W": 8, "FEAT_TILE_H": 32},
+    "one_group": {"FEAT_THREADS": 0}}
+
+
+def set_tiling(monkeypatch, tiling):
+    for name, value in TILINGS[tiling].items():
+        monkeypatch.setattr(W, name, value)
+
+
+@pytest.mark.parametrize("tiling", list(TILINGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,c,h,w", [(16, 256, 34, 60), (16, 32, 272, 480),
+                                     (2, 7, 33, 61)])
+def test_tiled_feat_warp_matches_twin(cuda_device, monkeypatch, tiling, b,
+                                      c, h, w, dtype):
+    """K1/K2 (the float mode of the tiled kernel), raw flow and absolute
+    positions, on the default tiles and channel groups and on others."""
+    set_tiling(monkeypatch, tiling)
+    img, flow = feat_inputs(13, b, c, h, w, dtype, cuda_device)
+    pos = W.ds4_positions(flow)
+    W.reset_launches()
+    got = [W.warp_feat(img, flow), W.warp_feat(img, pos, abs_pos=True)]
+    want = [W.warp_feat_ref(img, flow),
+            W.warp_feat_ref(img, pos, abs_pos=True)]
+    torch.cuda.synchronize()
+    assert launched() == {"warp_feat": 2}
+    for g, r in zip(got, want):
+        print(f"warp_feat {tiling} {(b, c, h, w)} max|d| "
+              f"{float((g.float() - r.float()).abs().max())}")
+        check(g, r)
+
+
+def iid_inputs(seed, b, h, w, dtype, device, scale):
+    """u8-valued images and spatially white flows of the given scale."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.integers(0, 256, (b, 3, h, w)) / 255.0,
+            rng.normal(size=(b, 2, h, w)) * scale,
+            rng.integers(0, 256, (b, 3, h, w)) / 255.0,
+            rng.normal(size=(b, 2, h, w)) * scale]
+    return [torch.from_numpy(x.astype(np.float32)).to(device=device,
+                                                      dtype=dtype)
+            for x in arrs]
+
+
+@pytest.mark.parametrize("tiling", list(TILINGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,flows", [
+    ((8, 1088, 1920), "smooth"), ((2, 52, 196), "iid"),
+    ((2, 52, 196), "iid_small"), ((2, 33, 61), "smooth")])
+def test_tiled_u8_warps_match_twins(cuda_device, monkeypatch, tiling, shape,
+                                    flows, dtype):
+    """K5 (``warp_pair``) and K4 (``warp_u8``, raw flow and absolute
+    positions) on the default tiles and on others; smooth flows that leave
+    the frame, and spatially white ones, large and small."""
+    set_tiling(monkeypatch, tiling)
+    if flows == "smooth":
+        ia, fa, ib, fb, _ = inputs(14, *shape, dtype, cuda_device)
+    else:
+        ia, fa, ib, fb = iid_inputs(15, *shape, dtype, cuda_device,
+                                    20.0 if flows == "iid" else 1.5)
+    pos = W.ds4_positions(fa)
+    W.reset_launches()
+    got = [*W.warp_pair(ia, fa, ib, fb), W.warp_u8(ia, fa),
+           W.warp_u8(ia, pos, abs_pos=True)]
+    want = [*W.warp_pair_ref(ia, fa, ib, fb), W.warp_u8_ref(ia, fa),
+            W.warp_u8_ref(ia, pos, abs_pos=True)]
+    torch.cuda.synchronize()
+    assert launched() == {"warp_pair": 1, "warp_u8": 2}
+    for g, r in zip(got, want):
+        print(f"u8 warps {tiling} {shape} {flows} max|d| "
+              f"{float((g.float() - r.float()).abs().max())}")
+        check(g, r)
+
+
+def test_tiled_warps_reject_bad_tiles(cuda_device, monkeypatch):
+    """A tile the kernels cannot take (threads not whole warps, or more than
+    256 of them) raises; nothing falls back to a twin."""
+    ia, fa, ib, fb, _ = inputs(16, 1, 16, 24, torch.float32, cuda_device)
+    W.reset_launches()
+    monkeypatch.setattr(W, "TILE_W", 10)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        W.warp_pair(ia, fa, ib, fb)
+    monkeypatch.setattr(W, "TILE_W", 64)
+    monkeypatch.setattr(W, "TILE_H", 16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        W.warp_u8(ia, fa)
+    monkeypatch.setattr(W, "FEAT_TILE_W", 24)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        W.warp_feat(ia, fa)
+    assert W.LAUNCHES == {k: 0 for k in W.LAUNCHES}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("parts,cout,stride,act,h,w", [
     ((3,), 32, 2, 3, 1088, 1920),     # contextnet entry
