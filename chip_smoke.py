@@ -9,11 +9,13 @@ and with ``-x -z`` TTA plus ``fuse_ds2``:
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
-   in parallel);
+   in parallel) and prints each kernel's registers and spills;
 3. holds each kernel against its plain PyTorch twin on the card, in bf16 and
-   f32, and times both with CUDA events: the three u8 pair warps at the
-   B=8 1088x1920 of a step (the kernels' report) and at B=2 (plus an
-   unaligned shape); ``warp_ds2`` (K3) at B=8 and B=2 1088x1920, the
+   f32, and times both with CUDA events: the three u8 pair warps (K5-K7,
+   bit for bit) at the B=8 1088x1920 of a step (the kernels' report; K7
+   also beside its sector floor) and at B=2 (plus an unaligned shape); the
+   bf16 sigmoid on the card against the CPU's, timed beside
+   ``torch.sigmoid``; ``warp_ds2`` (K3) at B=8 and B=2 1088x1920, the
    transposed 1920x1088 and an unaligned shape, timed beside the unfused
    form the graph runs without the switch (the ``warp_pair`` kernel, then
    ``resize2d``); ``warp_feat`` at the v2.3
@@ -290,12 +292,71 @@ def phase_pair_kernels(device, rng, report):
                 "warp_render": nbytes(ia, fa, ib, fb, m) + nbytes(ia)}
             timed = dtype == torch.bfloat16 and shape != ODD_SHAPE
             for name, (wrap, twin) in PAIR_KERNELS.items():
-                check_pair(report, name, getattr(W, wrap), getattr(W, twin),
-                           args[name], dtype, f"B,H,W={shape}", timed,
-                           tally=shape == STEP_SHAPE,
-                           bound=bound_ms(n_bytes[name]))
+                ms, _ = check_pair(report, name, getattr(W, wrap),
+                                   getattr(W, twin), args[name], dtype,
+                                   f"B,H,W={shape}", timed,
+                                   tally=shape == STEP_SHAPE,
+                                   bound=bound_ms(n_bytes[name]))
+                require(report[name]["max_abs_err"] == 0.0,
+                        f"{name} differs from its twin at {shape}")
+                if name == "warp_ds4_pair" and timed:
+                    floor = ds4_sector_floor_ms(ia, fa, ib, fb)
+                    print(f"  warp_ds4_pair {shape}: sector floor "
+                          f"{floor:.4f} ms beside its bound "
+                          f"{bound_ms(n_bytes[name])[0]:.4f} ms; kernel at "
+                          f"{100 * floor / ms:.1f}% of the floor", flush=True)
             del ia, fa, ib, fb, m, args
             torch.cuda.empty_cache()
+
+
+def ds4_sector_floor_ms(ia, fa, ib, fb) -> float:
+    """The least time K7's stride-4 taps can take, counted in the 32-byte
+    sectors device memory moves: every sector of flow rows 4i+1 and 4i+2
+    (half the flows), of at least three image rows in four (the taps'
+    corner rows 4i+1..4i+3 at zero flow), and the outputs once."""
+    n_bytes = (nbytes(fa, fb) / 2 + nbytes(ia, ib) * 3 / 4
+               + nbytes(ia, ib) / 16)
+    return n_bytes / HBM_BYTES_S * 1e3
+
+
+def phase_sigmoid(device, rng):
+    """The bf16 sigmoid of ``torch_ops`` (``1 / (1 + exp(-x))``, each step
+    in bf16, as XLA:CPU computes ``jax.nn.sigmoid``) on the card against the
+    same function on the CPU, over every finite bf16 value and over the
+    v4.6 mask of a 1080p B=8 step: <= 1 ulp and >= 99.9% exact (the card's
+    ``exp`` may round its f32 result otherwise than the CPU's).  Timed
+    beside ``torch.sigmoid`` at the v4.6 mask (B,1,H,W) and the v2.3
+    fusionnet's four sigmoid channels (B,4,H,W)."""
+    from rife_tpu_torch.ops.torch_ops import sigmoid
+
+    bits = np.arange(1 << 16, dtype=np.uint32) << 16
+    every = bits.view(np.float32)
+    b, h, w = STEP_SHAPE
+    logits = smooth_field(rng, b, h, w, 1)[..., 0] * 6
+    for label, x in (("every finite bf16 value",
+                      torch.from_numpy(every[np.isfinite(every)])),
+                     (f"v4.6 mask {(b, 1, h, w)}",
+                      torch.from_numpy(logits).unsqueeze(1))):
+        x = x.to(torch.bfloat16)
+        want = sigmoid(x).float()
+        got = sigmoid(x.to(device)).float().cpu()
+        diff = (got - want).abs()
+        ulp_ok = bool((diff <= bf16_ulp(want)).all())
+        exact = float((diff == 0).float().mean())
+        print(f"sigmoid bf16 cuda vs cpu, {label}: max |d| "
+              f"{float(diff.max()):.3g}, exact {exact:.6f}", flush=True)
+        require(ulp_ok and exact >= 0.999,
+                f"bf16 sigmoid on the card differs from the CPU ({label})")
+    for c in (1, 4):
+        x = torch.from_numpy(smooth_field(rng, b, h, w, c)).permute(
+            0, 3, 1, 2).contiguous().to(device=device, dtype=torch.bfloat16)
+        stepwise = time_ms(lambda: sigmoid(x))
+        once = time_ms(lambda: torch.sigmoid(x))
+        print(f"sigmoid bf16 {tuple(x.shape)}: stepwise {stepwise:.4f} ms, "
+              f"torch.sigmoid {once:.4f} ms, cost {stepwise - once:.4f} ms "
+              f"(CUDA events)", flush=True)
+    del x
+    torch.cuda.empty_cache()
 
 
 def phase_warp_ds2(device, rng, report):
@@ -715,9 +776,13 @@ def main() -> int:
     print(f"built {build.LIB_PATH.relative_to(ROOT)} from "
           f"{build.SRC_DIR.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s",
           flush=True)
+    kernel = ""
     for ln in log.splitlines():
-        if "registers" in ln or "spill" in ln:
-            print(f"  ptxas: {ln.strip()}", flush=True)
+        if "Compiling entry function" in ln:
+            kernel = ln.split("'")[1]
+        elif "registers" in ln or "spill" in ln:
+            print(f"  ptxas {kernel}: {ln.split(':', 1)[-1].strip()}",
+                  flush=True)
 
     models = ROOT / "rife_tpu_torch" / "_build" / "models"
     v46_dir = write_flownet_param(models)
@@ -732,6 +797,7 @@ def main() -> int:
     torch.manual_seed(20261016)
     report = {}
     phase_pair_kernels(device, rng, report)
+    phase_sigmoid(device, rng)
     phase_warp_ds2(device, rng, report)
     phase_single_warp(device, rng, report)
     phase_conv(device, rng, report, sites)

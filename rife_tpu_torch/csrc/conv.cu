@@ -63,6 +63,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace {
 
 constexpr int kMaxParts = 4;
@@ -530,26 +532,64 @@ conv3x3_tc_kernel(TcArgs a) {
   }
 }
 
-int g_sms = 0, g_smem_optin = 0;
+// What the launch needs to know of the calling thread's current device (the
+// wrapper's device guard sets it: ops/launch.py), read once per device.  The
+// table and the per-kernel attribute flags below are shared by every host
+// thread that launches, so they are read and written under one lock.
+constexpr int kMaxDevices = 64;
+
+struct DeviceInfo {
+  int id, sms, smem_optin;
+};
+
+std::mutex g_devices_lock;
+DeviceInfo g_devices[kMaxDevices] = {};  // sms == 0: not read yet
+
+cudaError_t current_device_info(DeviceInfo* info) {
+  int dev = 0;
+  cudaError_t rc = cudaGetDevice(&dev);
+  if (rc != cudaSuccess) return rc;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  std::lock_guard<std::mutex> hold(g_devices_lock);
+  DeviceInfo& d = g_devices[dev];
+  if (d.sms == 0) {
+    int sms = 0, smem = 0;
+    rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (rc == cudaSuccess)
+      rc = cudaDeviceGetAttribute(&smem, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (rc != cudaSuccess) return rc;
+    d = DeviceInfo{dev, sms, smem};
+  }
+  *info = d;
+  return cudaSuccess;
+}
+
+// raises conv3x3_tc_kernel<S, NT>'s dynamic shared memory limit to the
+// device's opt-in, once per device
+template <int S, int NT>
+cudaError_t allow_smem(const DeviceInfo& dev) {
+  static bool done[kMaxDevices] = {};
+  std::lock_guard<std::mutex> hold(g_devices_lock);
+  if (done[dev.id]) return cudaSuccess;
+  cudaError_t rc = cudaFuncSetAttribute(
+      conv3x3_tc_kernel<S, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, dev.smem_optin);
+  if (rc == cudaSuccess) done[dev.id] = true;
+  return rc;
+}
 
 template <int S, int NT>
-cudaError_t launch_tc(TcArgs a, int batch, int n_groups, cudaStream_t s) {
+cudaError_t launch_tc(TcArgs a, int batch, int n_groups, const DeviceInfo& dev,
+                      cudaStream_t s) {
   using Tl = TcTile<S>;
   const size_t smem = (static_cast<size_t>(9) * NT * 8 * (a.cp + 8) + 2 * Tl::kBuf +
                        static_cast<size_t>(kWarps) * NT * 8 * kTw) *
                           sizeof(__nv_bfloat16) +
                       2 * NT * 8 * sizeof(float);
-  if (smem > static_cast<size_t>(g_smem_optin)) return cudaErrorInvalidConfiguration;
-  static bool attr = false;
-  if (!attr) {
-    cudaError_t rc = cudaFuncSetAttribute(conv3x3_tc_kernel<S, NT>,
-                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                          g_smem_optin);
-    if (rc != cudaSuccess) return rc;
-    attr = true;
-  }
+  if (smem > static_cast<size_t>(dev.smem_optin)) return cudaErrorInvalidConfiguration;
+  cudaError_t rc = allow_smem<S, NT>(dev);
+  if (rc != cudaSuccess) return rc;
   int per_sm = 0;
-  cudaError_t rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       &per_sm, conv3x3_tc_kernel<S, NT>, kThreads, smem);
   if (rc != cudaSuccess) return rc;
   if (per_sm == 0) return cudaErrorInvalidConfiguration;
@@ -558,19 +598,20 @@ cudaError_t launch_tc(TcArgs a, int batch, int n_groups, cudaStream_t s) {
   const long long tiles = static_cast<long long>(batch) * a.tiles_x * a.tiles_y;
   if (tiles > (1LL << 30)) return cudaErrorInvalidConfiguration;
   a.n_tiles = static_cast<int>(tiles);
-  const int blocks = max(1, per_sm * g_sms / n_groups);
+  const int blocks = max(1, per_sm * dev.sms / n_groups);
   dim3 grid(static_cast<unsigned>(min(a.n_tiles, blocks)), static_cast<unsigned>(n_groups));
   conv3x3_tc_kernel<S, NT><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
 template <int S>
-cudaError_t dispatch_tc(const TcArgs& a, int batch, int n_groups, cudaStream_t s) {
+cudaError_t dispatch_tc(const TcArgs& a, int batch, int n_groups, const DeviceInfo& dev,
+                        cudaStream_t s) {
   switch ((a.group_ch + 15) / 16) {
-    case 1: return launch_tc<S, 2>(a, batch, n_groups, s);
-    case 2: return launch_tc<S, 4>(a, batch, n_groups, s);
-    case 3: return launch_tc<S, 6>(a, batch, n_groups, s);
-    case 4: return launch_tc<S, 8>(a, batch, n_groups, s);
+    case 1: return launch_tc<S, 2>(a, batch, n_groups, dev, s);
+    case 2: return launch_tc<S, 4>(a, batch, n_groups, dev, s);
+    case 3: return launch_tc<S, 6>(a, batch, n_groups, dev, s);
+    case 4: return launch_tc<S, 8>(a, batch, n_groups, dev, s);
     default: return cudaErrorInvalidConfiguration;
   }
 }
@@ -619,18 +660,9 @@ extern "C" int rife_conv3x3_tc(const void* x0, const void* x1, const void* x2, c
       act < kNone || act > kPrelu || (act == kPrelu && slope == nullptr) ||
       (phase_o > 0 && (stride != 1 || cout != 4 * phase_o)))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (g_sms == 0) {
-    int dev = 0;
-    cudaError_t rc = cudaGetDevice(&dev);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&g_sms, cudaDevAttrMultiProcessorCount, dev);
-    if (rc == cudaSuccess)
-      rc = cudaDeviceGetAttribute(&g_smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (rc != cudaSuccess) {
-      g_sms = 0;
-      return static_cast<int>(rc);
-    }
-  }
+  DeviceInfo dev;
+  const cudaError_t dev_rc = current_device_info(&dev);
+  if (dev_rc != cudaSuccess) return static_cast<int>(dev_rc);
   TcArgs a{};
   a.parts = parts;
   a.wtc = static_cast<const __nv_bfloat16*>(weight_tc);
@@ -664,7 +696,7 @@ extern "C" int rife_conv3x3_tc(const void* x0, const void* x1, const void* x2, c
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.group_ch > 64 || n_groups > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t rc = stride == 1 ? dispatch_tc<1>(a, batch, n_groups, s)
-                                     : dispatch_tc<2>(a, batch, n_groups, s);
+  const cudaError_t rc = stride == 1 ? dispatch_tc<1>(a, batch, n_groups, dev, s)
+                                     : dispatch_tc<2>(a, batch, n_groups, dev, s);
   return static_cast<int>(rc);
 }

@@ -64,12 +64,21 @@
 //   barriers and windows of ~2x the tile's pixels cost more than the
 //   conversions and L1 gathers they save.
 //
-// K3/K6/K7 keep one thread per output pixel handling every channel: the
-// corner indices and weights are computed once and reused for the three
-// planes; threads of a warp cover 32 neighbouring x on one row, so flow reads
-// and output writes coalesce and smooth flows' corner gathers hit L1/L2.
-// None of the TPU's band/slab/sheared staging or VMEM stripes carries over:
-// those exist because a TPU has no gather unit.
+// K6 (warp_render_kernel) takes K5's levers: the 32-register cap, two
+// pixels a thread, vector flow/mask loads and output stores, and keeps one
+// warp's corners live at a time.  K7 (warp_ds4_pair_kernel) keeps a thread an
+// output with all four taps' gathers in flight at once (up to 64
+// registers): on this function more threads with fewer loads in flight each
+// measured slower.  The stride-4 taps touch far more bytes than its bound counts:
+// DRAM moves 32-byte sectors, so K7 reads every sector of flow rows 4i+1 and
+// 4i+2 (1/2 of the flows) and of at least three image rows in four.
+//
+// K3 keeps one thread per output pixel handling every channel: the corner
+// indices and weights are computed once and reused for the three planes;
+// threads of a warp cover 32 neighbouring x on one row, so flow reads and
+// output writes coalesce and smooth flows' corner gathers hit L1/L2.  None of
+// the TPU's band/slab/sheared staging or VMEM stripes carries over: those
+// exist because a TPU has no gather unit.
 //
 // Rounding: every f32 operation uses the _rn intrinsics, so nvcc cannot
 // contract a multiply and an add into an FMA, and the result follows the twin's
@@ -152,75 +161,6 @@ __device__ __forceinline__ Corners flow_corners(const T* flow, size_t plane,
   float sx = __fadd_rn(static_cast<float>(x), ldf(flow + p));
   float sy = __fadd_rn(static_cast<float>(y), ldf(flow + plane + p));
   return corners(sx, sy, h, w);
-}
-
-// K6: both warps, then o = st*m + wi*(1-m) in the storage dtype; out (B,H,3,W).
-template <typename T>
-__global__ void warp_render_kernel(const T* __restrict__ img_m, const T* __restrict__ flow_m,
-                                   const T* __restrict__ img_i, const T* __restrict__ flow_i,
-                                   const T* __restrict__ mask, T* __restrict__ out, int h,
-                                   int w) {
-  int x = blockIdx.x * blockDim.x + threadIdx.x;
-  int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  int b = blockIdx.z;
-  size_t plane = static_cast<size_t>(h) * w;
-  size_t p = static_cast<size_t>(y) * w + x;
-  Corners km = flow_corners(flow_m + 2 * plane * b, plane, x, y, h, w);
-  Corners ki = flow_corners(flow_i + 2 * plane * b, plane, x, y, h, w);
-  float m = ldf(mask + plane * b + p);
-  float om = q<T>(__fsub_rn(1.0f, m));
-  const T* src_m = img_m + 3 * plane * b;
-  const T* src_i = img_i + 3 * plane * b;
-  T* dst = out + (static_cast<size_t>(b) * h + y) * 3 * w + x;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    float st = q<T>(sample(src_m + c * plane, km));
-    float wi = q<T>(sample(src_i + c * plane, ki));
-    float o = __fadd_rn(q<T>(__fmul_rn(st, m)), q<T>(__fmul_rn(wi, om)));
-    dst[c * w] = store<T>(o);
-  }
-}
-
-// K7: output pixel (i, j) of the 1/4-resolution grid averages the warps at the
-// four taps (4i+1+ty, 4j+1+tx), each sampled at tap + flow(tap) and cast to the
-// storage dtype; 0.5/0.5 over rows first, then over columns, in that dtype.
-template <typename T>
-__global__ void warp_ds4_pair_kernel(const T* __restrict__ img_a, const T* __restrict__ flow_a,
-                                     const T* __restrict__ img_b, const T* __restrict__ flow_b,
-                                     T* __restrict__ out_a, T* __restrict__ out_b, int h,
-                                     int w) {
-  int ho = h >> 2, wo = w >> 2;
-  int j = blockIdx.x * blockDim.x + threadIdx.x;
-  int i = blockIdx.y * blockDim.y + threadIdx.y;
-  if (j >= wo || i >= ho) return;
-  int b = blockIdx.z >> 1;
-  bool second = blockIdx.z & 1;
-  size_t plane = static_cast<size_t>(h) * w;
-  size_t plane_o = static_cast<size_t>(ho) * wo;
-  const T* img = (second ? img_b : img_a) + 3 * plane * b;
-  const T* flow = (second ? flow_b : flow_a) + 2 * plane * b;
-  T* out = (second ? out_b : out_a) + 3 * plane_o * b;
-  Corners k[2][2];
-#pragma unroll
-  for (int ty = 0; ty < 2; ++ty)
-#pragma unroll
-    for (int tx = 0; tx < 2; ++tx)
-      k[ty][tx] = flow_corners(flow, plane, 4 * j + 1 + tx, 4 * i + 1 + ty, h, w);
-  size_t po = static_cast<size_t>(i) * wo + j;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const T* src = img + c * plane;
-    float col[2];
-#pragma unroll
-    for (int tx = 0; tx < 2; ++tx) {
-      float y0 = q<T>(sample(src, k[0][tx]));
-      float y1 = q<T>(sample(src, k[1][tx]));
-      col[tx] = q<T>(__fadd_rn(q<T>(__fmul_rn(y0, 0.5f)), q<T>(__fmul_rn(y1, 0.5f))));
-    }
-    out[c * plane_o + po] =
-        store<T>(__fadd_rn(q<T>(__fmul_rn(col[0], 0.5f)), q<T>(__fmul_rn(col[1], 0.5f))));
-  }
 }
 
 // K3: output pixel (m, n) of the 1/2-resolution grid averages the warps of the
@@ -374,6 +314,114 @@ __global__ void __launch_bounds__(256, kU8 ? 8 : 6) warp_gather_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// K6 and K7
+// ---------------------------------------------------------------------------
+
+// K6: out (B,H,3,W) = st*m + wi*(1-m) in T, st and wi the u8-origin warps of
+// img_m by flow_m and of img_i by flow_i, each cast to T; 1-m, each product
+// and the sum rounded to T.  As K5: two adjacent output pixels a thread
+// under the register cap (32 in bf16, 8 blocks of 256 threads an SM; 40 in
+// f32), tile_w x tile_h pixels a block; kVec (W even, flows, mask and output
+// aligned to two elements): 2-element loads of both flows and the mask and
+// 2-element stores into each plane row; otherwise scalar, and a second pixel
+// past the right edge (odd W) reads flow 0, gathers at clamped corners and
+// is not stored.  Pixel-major: both warps of pixel x, then both of x+1, so
+// one warp's corners are live at a time (computing warp m's planes for both
+// pixels first, then warp i's, as the Pallas kernel orders it, spilled
+// ~128 B a thread at the cap and took 0.44 ms against 0.25 on an H100 at
+// B=8 1088x1920 bf16).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(256, sizeof(T) == 2 ? 8 : 6) warp_render_kernel(
+    const T* __restrict__ img_m, const T* __restrict__ flow_m, const T* __restrict__ img_i,
+    const T* __restrict__ flow_i, const T* __restrict__ mask, T* __restrict__ out, int h,
+    int w) {
+  const int x = 2 * (blockIdx.x * blockDim.x + threadIdx.x);
+  const int y = blockIdx.y * blockDim.y + threadIdx.y;
+  if (y >= h || x >= w) return;
+  const int n = kVec ? 2 : min(2, w - x);
+  const int b = blockIdx.z;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t p = static_cast<size_t>(y) * w + x;
+  const T* fm = flow_m + 2 * plane * b + p;
+  const T* fi = flow_i + 2 * plane * b + p;
+  const float2 mx = ld2(fm, n, kVec), my = ld2(fm + plane, n, kVec);
+  const float2 ix = ld2(fi, n, kVec), iy = ld2(fi + plane, n, kVec);
+  const float2 m = ld2(mask + plane * b + p, n, kVec);
+  const T* sm = img_m + 3 * plane * b;
+  const T* si = img_i + 3 * plane * b;
+  const float yf = static_cast<float>(y);
+  float o[3][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float xf = static_cast<float>(x + i);
+    float st[3];
+    {
+      const Corners k =
+          corners(__fadd_rn(xf, i ? mx.y : mx.x), __fadd_rn(yf, i ? my.y : my.x), h, w);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) st[c] = q<T>(sample(sm + c * plane, k));
+    }
+    const Corners k =
+        corners(__fadd_rn(xf, i ? ix.y : ix.x), __fadd_rn(yf, i ? iy.y : iy.x), h, w);
+    const float mm = i ? m.y : m.x;
+    const float om = q<T>(__fsub_rn(1.0f, mm));
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      o[c][i] = __fadd_rn(q<T>(__fmul_rn(st[c], mm)),
+                          q<T>(__fmul_rn(q<T>(sample(si + c * plane, k)), om)));
+  }
+  T* dst = out + (static_cast<size_t>(b) * h + y) * 3 * w + x;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) st2(dst + c * w, o[c], n, kVec);
+}
+
+// K7: output pixel (i, j) of the 1/4-resolution grid averages the u8-origin
+// warps at its four taps (4i+1+ty, 4j+1+tx), each sampled at tap + flow(tap)
+// and cast to T: 0.5/0.5 over rows (ty), then over columns (tx), in T.  A
+// thread an output, kBx x kBy outputs a block, all four taps' corners
+// live: the 48 gathers it issues at once keep more loads in flight than the
+// designs with more threads and fewer registers measured (a thread a tap,
+// the taps summed across lanes by warp shuffles, under the 32-register cap:
+// 0.1195 ms against 0.1085 on an H100 at B=8 1088x1920 bf16; a thread an
+// output walking its taps one at a time under the same cap: 0.134).  The
+// launch bound allows 64 registers (4 blocks of 256 threads an SM).
+template <typename T>
+__global__ void __launch_bounds__(256, 4) warp_ds4_pair_kernel(
+    const T* __restrict__ img_a, const T* __restrict__ flow_a, const T* __restrict__ img_b,
+    const T* __restrict__ flow_b, T* __restrict__ out_a, T* __restrict__ out_b, int h, int w) {
+  const int ho = h >> 2, wo = w >> 2;
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  const int i = blockIdx.y * blockDim.y + threadIdx.y;
+  if (j >= wo || i >= ho) return;
+  const int b = blockIdx.z >> 1;
+  const bool second = blockIdx.z & 1;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t plane_o = static_cast<size_t>(ho) * wo;
+  const T* img = (second ? img_b : img_a) + 3 * plane * b;
+  const T* flow = (second ? flow_b : flow_a) + 2 * plane * b;
+  Corners k[2][2];
+#pragma unroll
+  for (int ty = 0; ty < 2; ++ty)
+#pragma unroll
+    for (int tx = 0; tx < 2; ++tx)
+      k[ty][tx] = flow_corners(flow, plane, 4 * j + 1 + tx, 4 * i + 1 + ty, h, w);
+  T* out = (second ? out_b : out_a) + 3 * plane_o * b + static_cast<size_t>(i) * wo + j;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const T* src = img + c * plane;
+    float col[2];
+#pragma unroll
+    for (int tx = 0; tx < 2; ++tx) {
+      const float y0 = q<T>(sample(src, k[0][tx]));
+      const float y1 = q<T>(sample(src, k[1][tx]));
+      col[tx] = q<T>(__fadd_rn(q<T>(__fmul_rn(y0, 0.5f)), q<T>(__fmul_rn(y1, 0.5f))));
+    }
+    out[c * plane_o] =
+        store<T>(__fadd_rn(q<T>(__fmul_rn(col[0], 0.5f)), q<T>(__fmul_rn(col[1], 0.5f))));
+  }
+}
+
 constexpr int kBx = 32, kBy = 8;
 
 inline dim3 grid_for(int w, int h, int z) {
@@ -439,6 +487,31 @@ void launch_single(const Launch& a, int u8) {
     launch_warp<T, P, kAbs, false>(a);
 }
 
+template <typename T, bool kVec>
+void render_as(dim3 grid, dim3 block, cudaStream_t s, const void* img_m, const void* flow_m,
+               const void* img_i, const void* flow_i, const void* mask, void* out, int h,
+               int w) {
+  warp_render_kernel<T, kVec><<<grid, block, 0, s>>>(
+      static_cast<const T*>(img_m), static_cast<const T*>(flow_m), static_cast<const T*>(img_i),
+      static_cast<const T*>(flow_i), static_cast<const T*>(mask), static_cast<T*>(out), h, w);
+}
+
+// K6; the vector path where W is even and both flows, the mask and the
+// output are aligned to two elements
+template <typename T>
+void launch_render(const void* img_m, const void* flow_m, const void* img_i, const void* flow_i,
+                   const void* mask, void* out, int batch, int h, int w, int tile_w, int tile_h,
+                   cudaStream_t s) {
+  dim3 grid((w + tile_w - 1) / tile_w, (h + tile_h - 1) / tile_h, batch);
+  dim3 block(tile_w / 2, tile_h);
+  constexpr size_t a2 = 2 * sizeof(T);
+  if (w % 2 == 0 && aligned(flow_m, a2) && aligned(flow_i, a2) && aligned(mask, a2) &&
+      aligned(out, a2))
+    render_as<T, true>(grid, block, s, img_m, flow_m, img_i, flow_i, mask, out, h, w);
+  else
+    render_as<T, false>(grid, block, s, img_m, flow_m, img_i, flow_i, mask, out, h, w);
+}
+
 }  // namespace
 
 // C interface.  All tensors are contiguous NCHW in one dtype (bf16 != 0 ->
@@ -461,30 +534,25 @@ int rife_warp_pair(const void* img_a, const void* flow_a, const void* img_b,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K6.  mask (B,H,W), out (B,H,3,W); tile_w x tile_h as for rife_warp_pair.
 int rife_warp_render(const void* img_m, const void* flow_m, const void* img_i,
                      const void* flow_i, const void* mask, void* out, int batch, int h, int w,
-                     int bf16, void* stream) {
-  dim3 grid = grid_for(w, h, batch), block(kBx, kBy);
+                     int bf16, int tile_w, int tile_h, void* stream) {
+  if (!tile_ok(tile_w, tile_h, 2)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    warp_render_kernel<T><<<grid, block, 0, s>>>(
-        static_cast<const T*>(img_m), static_cast<const T*>(flow_m),
-        static_cast<const T*>(img_i), static_cast<const T*>(flow_i),
-        static_cast<const T*>(mask), static_cast<T*>(out), h, w);
-  } else {
-    using T = float;
-    warp_render_kernel<T><<<grid, block, 0, s>>>(
-        static_cast<const T*>(img_m), static_cast<const T*>(flow_m),
-        static_cast<const T*>(img_i), static_cast<const T*>(flow_i),
-        static_cast<const T*>(mask), static_cast<T*>(out), h, w);
-  }
+  if (bf16)
+    launch_render<__nv_bfloat16>(img_m, flow_m, img_i, flow_i, mask, out, batch, h, w, tile_w,
+                                 tile_h, s);
+  else
+    launch_render<float>(img_m, flow_m, img_i, flow_i, mask, out, batch, h, w, tile_w, tile_h, s);
   return static_cast<int>(cudaGetLastError());
 }
 
+// K7.  H and W divisible by 4; out_a, out_b (B,3,H/4,W/4).
 int rife_warp_ds4_pair(const void* img_a, const void* flow_a, const void* img_b,
                        const void* flow_b, void* out_a, void* out_b, int batch, int h, int w,
                        int bf16, void* stream) {
+  if ((h | w) & 3) return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid = grid_for(w / 4, h / 4, 2 * batch), block(kBx, kBy);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {

@@ -101,15 +101,15 @@ def _stale() -> bool:
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("rife_warp_render", "rife_warp_ds4_pair"):
+    for name in ("rife_warp_pair", "rife_warp_render"):
         fn = getattr(lib, name)
-        # 6 tensor pointers, batch, height, width, bf16 flag, stream
-        fn.argtypes = [vp] * 6 + [i, i, i, i, vp]
+        # 6 tensor pointers, batch, height, width, bf16 flag, tile width and
+        # height, stream
+        fn.argtypes = [vp] * 6 + [i] * 6 + [vp]
         fn.restype = i
-    # 6 tensor pointers, batch, height, width, bf16 flag, tile width and
-    # height, stream
-    lib.rife_warp_pair.argtypes = [vp] * 6 + [i] * 6 + [vp]
-    lib.rife_warp_pair.restype = i
+    # 6 tensor pointers, batch, height, width, bf16 flag, stream
+    lib.rife_warp_ds4_pair.argtypes = [vp] * 6 + [i] * 4 + [vp]
+    lib.rife_warp_ds4_pair.restype = i
     # image, flow, out; batch, height, width, bf16 flag, stream
     lib.rife_warp_ds2.argtypes = [vp] * 3 + [i, i, i, i, vp]
     lib.rife_warp_ds2.restype = i

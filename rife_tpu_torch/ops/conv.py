@@ -45,8 +45,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..native import build
 from . import common as C
+from . import launch as L
 
 LAUNCHES = {"conv3x3": 0}
 
@@ -232,10 +232,6 @@ def conv3x3_packed_ref(parts, weight_tc, bias=None, slope=None, *, stride=1,
 # CUDA wrapper
 # ---------------------------------------------------------------------------
 
-def _ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(0 if t is None else t.data_ptr())
-
-
 def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
     ref = parts[0]
     if ref.device.type != "cuda":
@@ -288,12 +284,6 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
     return b, h, w, cout
 
 
-def _raise_on(rc: int, what: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} "
-                           f"({build.error_string(rc)})")
-
-
 def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
             phase_o=0):
     """One launch: the tensor-core kernel for bf16 (over ``weight_tc``, the
@@ -303,22 +293,16 @@ def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
     cout = weight.shape[0]
     padded = parts + [None] * (MAX_PARTS - len(parts))
     chans = [0 if t is None else t.shape[1] for t in padded]
-    lib = build.load()
-    stream = ctypes.c_void_p(
-        torch.cuda.current_stream(parts[0].device).cuda_stream)
+    device = parts[0].device
     if parts[0].dtype == torch.bfloat16:
-        rc = lib.rife_conv3x3_tc(*[_ptr(t) for t in padded], *chans,
-                                 _ptr(weight_tc), weight_tc.shape[2],
-                                 _ptr(bias), _ptr(slope), _ptr(out), b, h, w,
-                                 cout, stride, act, ctypes.c_float(alpha),
-                                 phase_o, stream)
-        _raise_on(rc, "rife_conv3x3_tc")
+        L.launch("rife_conv3x3_tc", device, *map(L.ptr, padded), *chans,
+                 L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias),
+                 L.ptr(slope), L.ptr(out), b, h, w, cout, stride, act,
+                 ctypes.c_float(alpha), phase_o)
     else:
-        rc = lib.rife_conv3x3(*[_ptr(t) for t in padded], *chans,
-                              _ptr(weight), _ptr(bias), _ptr(slope),
-                              _ptr(out), b, h, w, cout, stride, act,
-                              ctypes.c_float(alpha), stream)
-        _raise_on(rc, "rife_conv3x3")
+        L.launch("rife_conv3x3", device, *map(L.ptr, padded), *chans,
+                 L.ptr(weight), L.ptr(bias), L.ptr(slope), L.ptr(out), b, h,
+                 w, cout, stride, act, ctypes.c_float(alpha))
     LAUNCHES["conv3x3"] += 1
 
 
@@ -336,8 +320,7 @@ def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
                            alpha=alpha)
     b, h, w, cout = _check(parts, weight, bias, slope, stride, act, weight_tc)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    out = torch.empty((b, cout, ho, wo), dtype=parts[0].dtype,
-                      device=parts[0].device)
+    out = parts[0].new_empty((b, cout, ho, wo))
     _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc)
     return out
 
@@ -358,8 +341,7 @@ def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
                            phase_weight_tc)
     if cout % 4:
         raise ValueError(f"phase weights need 4*O output channels, got {cout}")
-    out = torch.empty((b, cout // 4, 2 * h, 2 * w), dtype=x.dtype,
-                      device=x.device)
+    out = x.new_empty((b, cout // 4, 2 * h, 2 * w))
     _launch([x], phase_weight, phase_bias, phase_slope, out, 1, act, alpha,
             phase_weight_tc, phase_o=cout // 4)
     return out

@@ -305,8 +305,20 @@ def _op_eltwise(node, inputs, w, ctx):
     return [acc]
 
 
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid`` as XLA:CPU computes it: in bf16 it evaluates
+    ``1 / (1 + exp(-x))`` with each step rounded to bf16, while
+    ``torch.sigmoid`` rounds once and differs by 1 ulp on about half of a
+    mask's values.  Whether XLA on the TPU rounds stepwise too is not known
+    (its bf16 elementwise ops may run in f32 and round once, as
+    ``torch.sigmoid`` does).  f32 keeps ``torch.sigmoid``."""
+    if x.dtype == torch.bfloat16:
+        return torch.reciprocal(torch.exp(-x) + 1)
+    return torch.sigmoid(x)
+
+
 def _op_sigmoid(node, inputs, w, ctx):
-    return [torch.sigmoid(inputs[0])]
+    return [sigmoid(inputs[0])]
 
 
 # --- warps -------------------------------------------------------------------

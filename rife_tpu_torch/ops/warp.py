@@ -56,28 +56,27 @@ float32 ``(sx, sy)``; ``warp_render`` takes the mask as (B,H,W) and writes
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The tiled kernels (``warp_pair``, ``warp_u8``, ``warp_feat``) take their
-tiles and channel groups from the module constants below at each call;
+The kernels but ``warp_ds4_pair`` and ``warp_ds2`` take their tiles (and ``warp_feat`` its
+channel groups) from the module constants below at each call;
 tests/test_torch_warp_tiled.py mirrors their addressing on the CPU with the
 same values, and the card tests run them at these and at other tiles.
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..native import build
+from . import launch as L
 
 INV255 = 1.0 / 255.0  # used as f32(1/255), as the Pallas kernels do
 
-# K4/K5 (u8 modes): a block owns TILE_W x TILE_H output pixels, two
+# K4/K5 (u8 modes) and K6: a block owns TILE_W x TILE_H output pixels, two
 # adjacent x a thread; K1/K2 (float mode): FEAT_TILE_W x FEAT_TILE_H, one a
-# thread.  A block is whole warps of at most 256 threads.  Float mode: a
-# tile's C channels split into the fewest groups, a power of two of them,
-# that bring the output pixels times groups to FEAT_THREADS, each of at
-# least FEAT_MIN_GROUP channels (feat_group).
+# thread; K7 keeps its fixed 32 x 8 1/4-resolution outputs, one a thread
+# (csrc/warp.cu kBx, kBy).  A block is whole warps of at most 256 threads.  Float mode: a tile's C
+# channels split into the fewest groups, a power of two of them, that bring
+# the output pixels times groups to FEAT_THREADS, each of at least
+# FEAT_MIN_GROUP channels (feat_group).
 TILE_W, TILE_H = 64, 8
 FEAT_TILE_W, FEAT_TILE_H = 16, 16
 FEAT_THREADS = 2_000_000
@@ -269,18 +268,8 @@ def _check(imgs, flows, mask=None):
     return b, h, w, _DTYPE_CODE[ref.dtype]
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _launch(fn_name: str, tensors, ints, device: torch.device) -> None:
-    lib = build.load()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    rc = getattr(lib, fn_name)(*[_ptr(t) for t in tensors], *ints,
-                               ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"{fn_name}: CUDA error {rc} "
-                           f"({build.error_string(rc)})")
+    L.launch(fn_name, device, *[L.ptr(t) for t in tensors], *ints)
 
 
 def warp_pair(img_a, flow_a, img_b, flow_b):
@@ -302,9 +291,9 @@ def warp_render(img_m, flow_m, img_i, flow_i, mask):
     if img_m.device.type == "cpu":
         return warp_render_ref(img_m, flow_m, img_i, flow_i, mask)
     b, h, w, code = _check([img_m, img_i], [flow_m, flow_i], mask)
-    out = torch.empty((b, h, 3, w), dtype=img_m.dtype, device=img_m.device)
+    out = img_m.new_empty((b, h, 3, w))
     _launch("rife_warp_render", [img_m, flow_m, img_i, flow_i, mask, out],
-            (b, h, w, code), img_m.device)
+            (b, h, w, code, TILE_W, TILE_H), img_m.device)
     LAUNCHES["warp_render"] += 1
     return out
 
@@ -319,8 +308,8 @@ def warp_ds4_pair(img_a, flow_a, img_b, flow_b):
         raise ValueError(f"warp_ds4_pair needs H, W divisible by 4, got "
                          f"{h}x{w}")
     shape = (b, 3, h // 4, w // 4)
-    out_a = torch.empty(shape, dtype=img_a.dtype, device=img_a.device)
-    out_b = torch.empty(shape, dtype=img_b.dtype, device=img_b.device)
+    out_a = img_a.new_empty(shape)
+    out_b = img_b.new_empty(shape)
     _launch("rife_warp_ds4_pair", [img_a, flow_a, img_b, flow_b, out_a, out_b],
             (b, h, w, code), img_a.device)
     LAUNCHES["warp_ds4_pair"] += 1
@@ -335,8 +324,7 @@ def warp_ds2(img, flow):
     b, h, w, code = _check([img], [flow])
     if h % 2 or w % 2:
         raise ValueError(f"warp_ds2 needs even H and W, got {h}x{w}")
-    out = torch.empty((b, 3, h // 2, w // 2), dtype=img.dtype,
-                      device=img.device)
+    out = img.new_empty((b, 3, h // 2, w // 2))
     _launch("rife_warp_ds2", [img, flow, out], (b, h, w, code), img.device)
     LAUNCHES["warp_ds2"] += 1
     return out
@@ -383,7 +371,7 @@ def _warp_single(name: str, img, pos, abs_pos: bool, u8: bool):
     b, c, h, w, ho, wo, code = _check_single(img, pos, abs_pos)
     if u8 and c != 3:
         raise ValueError(f"the u8-origin warp takes 3 channels, got {c}")
-    out = torch.empty((b, c, ho, wo), dtype=img.dtype, device=img.device)
+    out = img.new_empty((b, c, ho, wo))
     tile = (TILE_W, TILE_H) if u8 else (FEAT_TILE_W, FEAT_TILE_H)
     group = 3 if u8 else feat_group(b, c, ho, wo)
     _launch("rife_warp_single", [img, pos, out],

@@ -285,6 +285,127 @@ def test_tiled_warps_reject_bad_tiles(cuda_device, monkeypatch):
     assert W.LAUNCHES == {k: 0 for k in W.LAUNCHES}
 
 
+RENDER_TILINGS = {  # ops/warp.py's K6 tile (the u8 tile): the default, a
+    # small one and a flat wide one; K7 keeps its fixed block
+    "default": {},
+    "small": {"TILE_W": 16, "TILE_H": 4},
+    "wide": {"TILE_W": 128, "TILE_H": 2}}
+
+
+def misaligned(t):
+    """A contiguous copy of ``t`` whose data starts one element past an
+    aligned address: the kernels then take their scalar paths."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("tiling", list(RENDER_TILINGS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,flows", [
+    ((8, 1088, 1920), "smooth"), ((2, 52, 196), "iid"),
+    ((2, 52, 196), "iid_small"), ((2, 52, 196), "misaligned"),
+    ((2, 33, 61), "smooth")])
+def test_render_and_ds4_kernels_bit_exact(cuda_device, monkeypatch, tiling,
+                                          shape, flows, dtype):
+    """K6 (``warp_render``) and, where H and W divide by 4, K7
+    (``warp_ds4_pair``) equal their twins bit for bit (max |d| 0): smooth
+    flows that leave the frame, spatially white ones, large and small, and
+    operands off K6's vector alignment; W = 196 gives K7 an odd W/4."""
+    for name, value in RENDER_TILINGS[tiling].items():
+        monkeypatch.setattr(W, name, value)
+    if flows in ("smooth", "misaligned"):
+        ia, fa, ib, fb, m = inputs(17, *shape, dtype, cuda_device)
+    else:
+        ia, fa, ib, fb = iid_inputs(18, *shape, dtype, cuda_device,
+                                    20.0 if flows == "iid" else 1.5)
+        m = inputs(19, *shape, dtype, cuda_device)[4]
+    if flows == "misaligned":
+        fa, fb, m = misaligned(fa), misaligned(fb), misaligned(m)
+    W.reset_launches()
+    got = [W.warp_render(ia, fa, ib, fb, m)]
+    want = [W.warp_render_ref(ia, fa, ib, fb, m)]
+    ds4 = shape[1] % 4 == 0 and shape[2] % 4 == 0
+    if ds4:
+        got += W.warp_ds4_pair(ia, fa, ib, fb)
+        want += W.warp_ds4_pair_ref(ia, fa, ib, fb)
+    torch.cuda.synchronize()
+    assert launched() == {"warp_render": 1, **({"warp_ds4_pair": 1} if ds4
+                                               else {})}
+    for g, r in zip(got, want):
+        print(f"K6/K7 {tiling} {shape} {flows} max|d| "
+              f"{float((g.float() - r.float()).abs().max())}")
+        assert g.shape == r.shape and torch.equal(g, r)
+
+
+def test_render_rejects_bad_tiles(cuda_device, monkeypatch):
+    """K6 tiles that are not whole warps, or need more than 256 threads: the
+    launch raises and counts nothing."""
+    ia, fa, ib, fb, m = inputs(20, 1, 16, 24, torch.float32, cuda_device)
+    W.reset_launches()
+    monkeypatch.setattr(W, "TILE_W", 10)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        W.warp_render(ia, fa, ib, fb, m)
+    monkeypatch.setattr(W, "TILE_W", 64)
+    monkeypatch.setattr(W, "TILE_H", 16)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        W.warp_render(ia, fa, ib, fb, m)
+    assert W.LAUNCHES == {k: 0 for k in W.LAUNCHES}
+
+
+def every_kernel(device):
+    """One call of each wrapper on ``device``, from seeded inputs; returns
+    the outputs on the CPU."""
+    from rife_tpu_torch.ops import conv as CV
+
+    outs = []
+    for dtype in (torch.float32, torch.bfloat16):
+        ia, fa, ib, fb, m = inputs(21, 2, 64, 96, dtype, device)
+        img, flow = feat_inputs(22, 2, 16, 32, 48, dtype, device)
+        outs += [*W.warp_pair(ia, fa, ib, fb), W.warp_render(ia, fa, ib, fb, m),
+                 *W.warp_ds4_pair(ia, fa, ib, fb), W.warp_ds2(ia, fa),
+                 W.warp_u8(ia, fa), W.warp_feat(img, flow),
+                 W.warp_feat(img, W.ds4_positions(flow), abs_pos=True)]
+        weight = (torch.randn(24, 16, 3, 3, generator=torch.Generator()
+                              .manual_seed(23)) * 0.2).to(device, dtype)
+        bias = torch.linspace(-1, 1, 24, device=device)
+        outs.append(CV.conv3x3([img], weight, bias, stride=2,
+                               act=CV.ACT_RELU,
+                               weight_tc=CV.pack_weight_tc(weight)))
+        outs.append(CV.deconv4x4(img, weight, bias, act=CV.ACT_NONE,
+                                 phase_weight_tc=CV.pack_weight_tc(weight)))
+    torch.cuda.synchronize(device)
+    return [o.cpu() for o in outs]
+
+
+def test_launches_follow_the_tensors_device(cuda_device):
+    """A second card's tensors launch there while the thread's current
+    device is the first: every wrapper's output equals the first card's, and
+    the current device is left as it was."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    torch.cuda.set_device(0)
+    first = every_kernel(torch.device("cuda", 0))
+    second = every_kernel(torch.device("cuda", 1))
+    assert torch.cuda.current_device() == 0
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_kernels_from_several_host_threads(cuda_device):
+    """Host threads launching at once (the per-device state of csrc/conv.cu
+    is shared under a lock) get what one thread gets."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    want = every_kernel(cuda_device)
+    with ThreadPoolExecutor(4) as pool:
+        runs = list(pool.map(lambda _: every_kernel(cuda_device), range(4)))
+    for got in runs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("parts,cout,stride,act,h,w", [
     ((3,), 32, 2, 3, 1088, 1920),     # contextnet entry

@@ -1,0 +1,175 @@
+"""Every kernel wrapper calls its C function inside a device guard for its
+tensors' device, on that device's current stream, and raises when the call
+fails (ops/launch.py).
+
+Runs on the CPU: ``build.load`` is replaced by a fake library that records
+each call, ``torch.cuda.device`` by a recording context manager and
+``torch.cuda.current_stream`` by a stand-in; the operands are CPU tensors of
+a subclass that reports a CUDA device, so each wrapper takes its kernel path
+and not its twin.  On two cards: tests/test_torch_cuda.py.
+"""
+
+import types
+
+import pytest
+import torch
+
+from rife_tpu_torch.native import build
+from rife_tpu_torch.ops import conv as CV
+from rife_tpu_torch.ops import warp as W
+
+
+class OnCard(torch.Tensor):
+    """A CPU tensor that reports ``OnCard.card`` as its device."""
+
+    card = torch.device("cuda", 0)
+
+    @property
+    def device(self):
+        return OnCard.card
+
+
+class Recorder:
+    """The fake library, the guard and the stream: records (C function,
+    guarded device, stream's device) per call; ``rc`` is what each call
+    returns."""
+
+    def __init__(self):
+        self.calls, self.guards, self.rc = [], [], 0
+
+    def guard(self, device):
+        rec = self
+
+        class Guard:
+            def __enter__(self):
+                rec.guards.append(torch.device(device))
+
+            def __exit__(self, *exc):
+                rec.guards.pop()
+        return Guard()
+
+    def stream(self, device=None):
+        return types.SimpleNamespace(cuda_stream=0, device=device)
+
+    def __getattr__(self, name):
+        if name == "rife_error_string":
+            return lambda code: b"recorded failure"
+        if not name.startswith("rife_"):
+            raise AttributeError(name)
+
+        def call(*args):
+            self.calls.append((name, self.guards[-1] if self.guards else None,
+                               args[-1]))
+            return self.rc
+        return call
+
+
+@pytest.fixture
+def rec(monkeypatch):
+    r = Recorder()
+    monkeypatch.setattr(build, "load", lambda: r)
+    monkeypatch.setattr(torch.cuda, "device", r.guard)
+    monkeypatch.setattr(torch.cuda, "current_stream", r.stream)
+    W.reset_launches()
+    CV.reset_launches()
+    return r
+
+
+def on_card(*shape, dtype=torch.float32):
+    return torch.rand(*shape).to(dtype).as_subclass(OnCard)
+
+
+def warp_calls(dtype):
+    """(wrapper, C function, thunk) for every warp wrapper."""
+    b, h, w = 2, 8, 16
+    img = lambda: on_card(b, 3, h, w, dtype=dtype)  # noqa: E731
+    flow = lambda: on_card(b, 2, h, w, dtype=dtype)  # noqa: E731
+    pos = on_card(b, 2, h // 2, w // 2)
+    feat = on_card(b, 5, h, w, dtype=dtype)
+    mask = on_card(b, h, w, dtype=dtype)
+    return [
+        ("warp_pair", "rife_warp_pair",
+         lambda: W.warp_pair(img(), flow(), img(), flow())),
+        ("warp_render", "rife_warp_render",
+         lambda: W.warp_render(img(), flow(), img(), flow(), mask)),
+        ("warp_ds4_pair", "rife_warp_ds4_pair",
+         lambda: W.warp_ds4_pair(img(), flow(), img(), flow())),
+        ("warp_ds2", "rife_warp_ds2", lambda: W.warp_ds2(img(), flow())),
+        ("warp_feat", "rife_warp_single", lambda: W.warp_feat(feat, flow())),
+        ("warp_feat", "rife_warp_single",
+         lambda: W.warp_feat(feat, pos, abs_pos=True)),
+        ("warp_u8", "rife_warp_single", lambda: W.warp_u8(img(), flow())),
+        ("warp_u8", "rife_warp_single",
+         lambda: W.warp_u8(img(), pos, abs_pos=True)),
+    ]
+
+
+def conv_calls(dtype):
+    """(counter, C function, thunk) for conv3x3 (one and three parts) and
+    deconv4x4."""
+    c_fn = "rife_conv3x3_tc" if dtype == torch.bfloat16 else "rife_conv3x3"
+    parts = [on_card(2, c, 8, 12, dtype=dtype) for c in (3, 3, 4)]
+    weight = on_card(16, 10, 3, 3, dtype=dtype)
+    bias, slope = on_card(16), on_card(16)
+    phase = on_card(4 * 6, 10, 3, 3, dtype=dtype)
+    return [
+        ("conv3x3", c_fn, lambda: CV.conv3x3(
+            parts, weight, bias, slope, stride=2, act=CV.ACT_PRELU,
+            weight_tc=CV.pack_weight_tc(weight))),
+        ("conv3x3", c_fn, lambda: CV.conv3x3(
+            [torch.cat(parts, 1)], weight, bias,
+            weight_tc=CV.pack_weight_tc(weight))),
+        ("conv3x3", c_fn, lambda: CV.deconv4x4(
+            torch.cat(parts, 1), phase, on_card(24), act=CV.ACT_RELU,
+            phase_weight_tc=CV.pack_weight_tc(phase))),
+    ]
+
+
+def counts():
+    return {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
+
+
+@pytest.mark.parametrize("index", [0, 1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["warp", "conv"])
+def test_every_launch_runs_under_its_devices_guard(rec, monkeypatch, kind,
+                                                   dtype, index):
+    card = torch.device("cuda", index)
+    monkeypatch.setattr(OnCard, "card", card)
+    for counter, c_fn, thunk in (warp_calls if kind == "warp"
+                                 else conv_calls)(dtype):
+        rec.calls.clear()
+        before = counts().get(counter, 0)
+        out = thunk()
+        outs = out if isinstance(out, tuple) else (out,)
+        assert all(o.device == card for o in outs)
+        assert len(rec.calls) == 1, rec.calls
+        name, guarded, stream = rec.calls[0]
+        assert (name, guarded) == (c_fn, card)
+        assert stream.value in (None, 0)
+        assert rec.guards == []  # the guard is left after the call
+        assert counts()[counter] == before + 1
+
+
+@pytest.mark.parametrize("kind", ["warp", "conv"])
+def test_failed_launch_raises_and_counts_nothing(rec, kind):
+    rec.rc = 700
+    for counter, c_fn, thunk in (warp_calls if kind == "warp"
+                                 else conv_calls)(torch.bfloat16):
+        with pytest.raises(RuntimeError, match=f"{c_fn}: CUDA error 700 "
+                                               r"\(recorded failure\)"):
+            thunk()
+    assert counts() == {}
+
+
+def test_stream_is_the_guarded_devices(rec, monkeypatch):
+    """The stream handed to the C function is taken for the tensor's
+    device, inside the guard."""
+    seen = []
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: seen.append(
+                            (torch.device(device), list(rec.guards)))
+                        or rec.stream(device))
+    monkeypatch.setattr(OnCard, "card", torch.device("cuda", 2))
+    warp_calls(torch.float32)[0][2]()
+    assert seen == [(torch.device("cuda", 2), [torch.device("cuda", 2)])]

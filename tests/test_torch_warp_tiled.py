@@ -200,3 +200,140 @@ def test_feat_group_fills_the_launch(monkeypatch):
     assert W.feat_group(1, 7, 3, 3) == 2  # 4 groups: 8 would leave one empty
     monkeypatch.setattr(W, "FEAT_THREADS", 0)
     assert W.feat_group(1, 7, 3, 3) == 7
+
+
+# ---------------------------------------------------------------------------
+# K6 (warp_render_kernel) and K7 (warp_ds4_pair_kernel)
+# ---------------------------------------------------------------------------
+
+def u8_vals(img):
+    b, c, h, w = img.shape
+    return torch.round(img.float().clamp(0.0, 1.0) * 255.0).reshape(b, c, h * w)
+
+
+def gather_u8(vals, sx, sy, h, w):
+    """The u8-origin sum at f32 positions (sx, sy) of one image's planes
+    (C, H*W) -> (C, N) f32, unscaled; every corner lies in the plane."""
+    (xa, xb, ya, yb), wt = taps(sx, sy, h, w)
+    idx = [yy * w + xx for yy, xx in ((ya, xa), (ya, xb), (yb, xa), (yb, xb))]
+    assert all(int(i.min()) >= 0 and int(i.max()) < h * w for i in idx)
+    return u8_sum([vals[:, i] for i in idx], wt)
+
+
+def render_mirror(img_m, flow_m, img_i, flow_i, mask):
+    """K6's launch as the kernel addresses it: TILE_W x TILE_H pixels a
+    block, two adjacent x a thread (a second pixel past an odd
+    right edge reads flow 0, gathers at clamped corners and is not stored);
+    warp m's planes cast to the storage dtype first, then warp i's and the
+    blend -> (B,H,3,W)."""
+    b, _, h, w = img_m.shape
+    tw, th, dt = W.TILE_W, W.TILE_H, img_m.dtype
+    assert tw % 2 == 0 and (tw // 2 * th) % 32 == 0 and tw // 2 * th <= 256
+    vm, vi = u8_vals(img_m), u8_vals(img_i)
+    out = torch.full((b, h, 3, w), float("nan"))
+    for bi in range(b):
+        for y0 in range(0, h, th):
+            for x0 in range(0, w, tw):
+                ys = torch.arange(y0, min(h, y0 + th))
+                # the block's threads cover x0 .. x0+tw-1, two pixels each,
+                # up to the pair that holds the last column
+                xs = torch.arange(x0, min(x0 + tw, w + w % 2))
+                yy, xx = torch.meshgrid(ys, xs, indexing="ij")
+                yy, xx = yy.reshape(-1), xx.reshape(-1)
+                live = xx < w
+                xc = xx.clamp(max=w - 1)
+
+                def warp(vals, flow):
+                    fx = torch.where(live, flow[bi, 0, yy, xc].float(), 0.0)
+                    fy = torch.where(live, flow[bi, 1, yy, xc].float(), 0.0)
+                    acc = gather_u8(vals[bi], xx.float() + fx, yy.float() + fy,
+                                    h, w)
+                    return W._scaled(acc, dt)
+
+                st = warp(vm, flow_m)
+                m = torch.where(live, mask[bi, yy, xc], 0.0).to(dt)
+                om = 1 - m
+                res = st * m + warp(vi, flow_i) * om
+                dst = out[bi][yy[live], :, xx[live]]
+                assert torch.isnan(dst).all()  # each output written once
+                out[bi][yy[live], :, xx[live]] = res[:, live].t().float()
+    assert not torch.isnan(out).any()
+    return out.to(dt)
+
+
+def ds4_mirror(img, flow):
+    """K7's launch for one image of the pair as the kernel addresses it:
+    DS4_BLOCK outputs a block, one a thread; a thread gathers its four
+    taps' planes, casts each to the storage dtype, and halves and sums the rows, then the columns, in
+    that dtype -> (B,3,H/4,W/4)."""
+    b, _, h, w = img.shape
+    ho, wo = h // 4, w // 4
+    (tw, th), dt = DS4_BLOCK, img.dtype
+    half = torch.tensor(0.5, dtype=dt)
+    vals = u8_vals(img)
+    out = torch.full((b, 3, ho, wo), float("nan"))
+    for bi in range(b):
+        for i0 in range(0, ho, th):
+            for j0 in range(0, wo, tw):
+                ii, jj = torch.meshgrid(torch.arange(i0, min(ho, i0 + th)),
+                                        torch.arange(j0, min(wo, j0 + tw)),
+                                        indexing="ij")
+                ii, jj = ii.reshape(-1), jj.reshape(-1)
+                taps_ = {}
+                for ty in range(2):
+                    for tx in range(2):
+                        ys, xs = 4 * ii + 1 + ty, 4 * jj + 1 + tx
+                        acc = gather_u8(
+                            vals[bi], xs.float() + flow[bi, 0][ys, xs].float(),
+                            ys.float() + flow[bi, 1][ys, xs].float(), h, w)
+                        taps_[ty, tx] = W._scaled(acc, dt)
+                col = [taps_[0, tx] * half + taps_[1, tx] * half
+                       for tx in range(2)]
+                o = col[0] * half + col[1] * half
+                dst = out[bi][:, ii, jj]
+                assert torch.isnan(dst).all()  # each output written once
+                out[bi][:, ii, jj] = o.float()
+    assert not torch.isnan(out).any()
+    return out.to(dt)
+
+
+RENDER_SHAPES = [(2, 19, 48), (1, 13, 37), (1, 33, 64)]  # odd W: 37
+RENDER_TILES = [None, (16, 4), (128, 2)]
+DS4_SHAPES = [(2, 20, 52), (1, 12, 196), (1, 32, 64)]  # W/4 odd: 13, 49
+DS4_BLOCK = (32, 8)  # csrc/warp.cu kBx x kBy
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["smooth", "iid", "out"])
+@pytest.mark.parametrize("shape", RENDER_SHAPES)
+@pytest.mark.parametrize("tile", RENDER_TILES)
+def test_render_mirror_matches_twin(monkeypatch, dtype, kind, shape, tile):
+    """K6 on ops/warp.py's u8 tile and on others, ragged sizes."""
+    if tile is not None:
+        monkeypatch.setattr(W, "TILE_W", tile[0])
+        monkeypatch.setattr(W, "TILE_H", tile[1])
+    b, h, w = shape
+    rng = np.random.default_rng(10)
+    imgs = [torch.from_numpy(rng.integers(0, 256, (b, 3, h, w)) / 255.0)
+            .float().to(dtype) for _ in range(2)]
+    fl = [flows(kind, b, h, w, s).to(dtype) for s in (11, 12)]
+    mask = torch.from_numpy(rng.uniform(0, 1, (b, h, w))).float().to(dtype)
+    want = W.warp_render_ref(imgs[0], fl[0], imgs[1], fl[1], mask)
+    assert torch.equal(render_mirror(imgs[0], fl[0], imgs[1], fl[1], mask),
+                       want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["smooth", "iid", "out"])
+@pytest.mark.parametrize("shape", DS4_SHAPES)
+def test_ds4_mirror_matches_twin(dtype, kind, shape):
+    """K7 on its fixed block, ragged right and bottom edges (W/4 odd, not a
+    multiple of the block)."""
+    b, h, w = shape
+    rng = np.random.default_rng(13)
+    imgs = [torch.from_numpy(rng.integers(0, 256, (b, 3, h, w)) / 255.0)
+            .float().to(dtype) for _ in range(2)]
+    fl = [flows(kind, b, h, w, s).to(dtype) for s in (14, 15)]
+    want = W.warp_ds4_pair_ref(imgs[0], fl[0], imgs[1], fl[1])
+    for img, f, ref in zip(imgs, fl, want):
+        assert torch.equal(ds4_mirror(img, f), ref)
