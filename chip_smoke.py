@@ -2,10 +2,10 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives ``rife_tpu_torch`` on one card, through the entry points a user calls
-(``RIFE(...).process_batch`` / ``process_batch_device``), on six paths at
+(``RIFE(...).process_batch`` / ``process_batch_device``), on seven paths at
 full width: the v4.6-architecture graph and the v2.3-architecture graphs
 (in-repo reconstructions, synthetic weights), each plain, with ``fuse_ds2``
-and with ``-x -z`` TTA plus ``fuse_ds2``:
+and with ``-x -z`` TTA plus ``fuse_ds2``, and v2.3 with UHD ``-u`` at 4K:
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
@@ -15,8 +15,10 @@ and with ``-x -z`` TTA plus ``fuse_ds2``:
    bit for bit) at the B=8 1088x1920 of a step (the kernels' report; K7
    also beside its sector floor) and at B=2 (plus an unaligned shape); the
    bf16 sigmoid on the card against the CPU's, timed beside
-   ``torch.sigmoid``; ``warp_ds2`` (K3) at B=8 and B=2 1088x1920, the
-   transposed 1920x1088 and an unaligned shape, timed beside the unfused
+   ``torch.sigmoid``; ``warp_ds2`` (K3, bit for bit) at B=8 and B=2
+   1088x1920, the transposed 1920x1088, an unaligned shape, B=1, odd H/2 and
+   W/2, the smallest grid and a flow off its 2-element alignment (the
+   kernel's scalar flow loads), timed beside the unfused
    form the graph runs without the switch (the ``warp_pair`` kernel, then
    ``resize2d``); ``warp_feat`` at the v2.3
    contextnet's four feature warps of a 1080p B=8 step (C=32..256, the batch
@@ -50,7 +52,14 @@ and with ``-x -z`` TTA plus ``fuse_ds2``:
    against the CPU at 256x448 B=1 (for v2.3 a size at which the fusionnet's
    deconv sites reach ``conv3x3``), then bf16 1080p B=2 frames/s; launches
    equal ``plan.kernel_sites``;
-8. prints the kernels' JSON line (launches of each path's counted run), the
+8. runs v2.3 with ``-u`` (UHD: the flownet on the frames halved, its warps
+   float warps): ``warp_feat`` against its twin at the UHD flownet's C=3
+   frame warps of a 4K B=2 step (raw flow, timed, and the ds4 absolute
+   positions); f32 on the card against the CPU at 576x1024 B=1 (conv sites
+   on ``conv3x3``); then bf16 4K (2160x3840) B=2 frames/s, launches equal to
+   ``plan.kernel_sites`` (no u8-origin launch from the flownet), and the PSNR
+   of its first item against f32 on the CPU;
+9. prints the kernels' JSON line (launches of each path's counted run), the
    nvidia-smi line and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
@@ -75,9 +84,16 @@ STEP_SHAPE = (8, 1088, 1920)  # the warps of one 1080p B=8 step
 MAIN_SHAPE = (2, 1088, 1920)
 ODD_SHAPE = (2, 52, 196)
 DS2_SHAPES = [STEP_SHAPE, MAIN_SHAPE, (2, 1920, 1088), ODD_SHAPE]
+# K3 edge shapes: B=1, odd H/2 and W/2 (27x99), the smallest grid
+DS2_EDGE = [(1, 1088, 1920), (1, 54, 198), (1, 2, 2)]
 V46_CHECK = (1, 256, 448)
 V23_CHECK = (2, 544, 960)
 TTA_CHECK = (1, 256, 448)
+# -u: the flownet halves the padded frames and reaches 1/32 of them, so the
+# padded sides are multiples of 64; 576x1024 is large enough for the gates
+# to send the contextnet's and fusionnet's sites to conv3x3
+UHD_CHECK = (1, 576, 1024)
+UHD_BENCH = (2, 2160, 3840)
 BENCH = (8, 1080, 1920)
 TTA_BATCH = 2
 BENCH_STEPS = 5
@@ -360,16 +376,18 @@ def phase_sigmoid(device, rng):
 
 
 def phase_warp_ds2(device, rng, report):
-    """``warp_ds2`` (K3) at DS2_SHAPES in bf16 and f32 (STEP_SHAPE in bf16
-    only); bf16 at STEP_SHAPE (the report) and MAIN_SHAPE it is timed
-    against its twin, and at MAIN_SHAPE a block entry's two fused warps
-    against the unfused form on the same inputs (one ``warp_pair`` launch,
-    then ``resize2d`` of each warp)."""
+    """``warp_ds2`` (K3) bit for bit with its twin at DS2_SHAPES and DS2_EDGE
+    in bf16 and f32 (STEP_SHAPE in bf16 only), and with a flow one element
+    off its 2-element alignment (the scalar flow loads); bf16 at STEP_SHAPE
+    (the report) and MAIN_SHAPE it is timed against its twin, and at
+    MAIN_SHAPE a block entry's two fused warps against the unfused form on
+    the same inputs (one ``warp_pair`` launch, then ``resize2d`` of each
+    warp)."""
     from rife_tpu_torch.ops import warp as W
     from rife_tpu_torch.ops.torch_ops import resize2d
 
     for dtype in (torch.bfloat16, torch.float32):
-        for shape in DS2_SHAPES:
+        for shape in DS2_SHAPES + DS2_EDGE:
             if dtype == torch.float32 and shape == STEP_SHAPE:
                 continue
             ia, fa, ib, fb, _ = kernel_inputs(rng, shape, dtype, device)
@@ -379,6 +397,18 @@ def phase_warp_ds2(device, rng, report):
                        main or shape == STEP_SHAPE,
                        tally=shape == STEP_SHAPE,
                        bound=bound_ms(nbytes(ia, fa) + nbytes(ia) / 4))
+            if shape == ODD_SHAPE:
+                odd = torch.empty(fa.numel() + 1, device=device,
+                                  dtype=dtype)[1:].view(fa.shape)
+                odd.copy_(fa)
+                require(odd.data_ptr() % (2 * odd.element_size()) != 0,
+                        "the unaligned flow is aligned")
+                check_pair(report, "warp_ds2", W.warp_ds2,
+                           lambda i, f: W.warp_ds2_ref(i, fa), (ia, odd),
+                           dtype, f"B,H,W={shape}, flow off its alignment",
+                           False)
+            require(report["warp_ds2"]["max_abs_err"] == 0.0,
+                    f"warp_ds2 differs from its twin at {shape}")
             if main:
                 h, w = shape[1], shape[2]
                 fused = time_ms(lambda: (W.warp_ds2(ia, fa),
@@ -579,11 +609,11 @@ def read_counts():
     return {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
 
 
-def bench(sess, device, label, card, b=BENCH[0]):
-    """bf16 1080p B=b (default 8) through ``process_batch_device`` on
-    device-resident u8 frames; returns (launches over the counted steps,
-    first frames, the u8 inputs, frames/s)."""
-    _, h, w = BENCH
+def bench(sess, device, label, card, b=BENCH[0], size=BENCH[1:]):
+    """bf16 B=b (default 8) frames of ``size`` (default 1080p) through
+    ``process_batch_device`` on device-resident u8 frames; returns (launches
+    over the counted steps, first frames, the u8 inputs, frames/s)."""
+    h, w = size
     f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
     d0 = torch.from_numpy(f0).to(device)
     d1 = torch.from_numpy(f1).to(device)
@@ -749,6 +779,77 @@ def phase_modes(device, name, model_dir, label, rng, card, check_shape, b,
     return launches, fps
 
 
+def phase_uhd_warps(device, rng, report):
+    """``warp_feat`` (K2 bf16, K1 f32) at the frame warps of the UHD
+    flownet of a 4K B=2 step, whose frames are copies halved to 1088x1920
+    and take the float warp (C=3): by a raw flow (timed in bf16 beside its
+    bound and ``grid_sample``) and at the ds4 absolute positions of a block
+    entry; each against its twin."""
+    from rife_tpu_torch.ops import warp as W
+
+    b, h, w = UHD_BENCH
+    shape = (b, (h + 31) // 32 * 16, (w + 31) // 32 * 16)
+    for dtype in (torch.bfloat16, torch.float32):
+        img, flow, _, _, _ = kernel_inputs(rng, shape, dtype, device)
+        grid = sample_grid(flow)
+        check_pair(report, "warp_feat", W.warp_feat, W.warp_feat_ref,
+                   (img, flow), dtype, f"UHD flownet frames B,C,H,W="
+                   f"{tuple(img.shape)}", dtype == torch.bfloat16,
+                   tally=False, bound=bound_ms(nbytes(img, flow) + nbytes(img)),
+                   library=lambda: torch.nn.functional.grid_sample(
+                       img, grid, mode="bilinear", padding_mode="border",
+                       align_corners=True))
+        pos = W.ds4_positions(flow)
+        check_pair(report, "warp_feat",
+                   lambda i, p: W.warp_feat(i, p, abs_pos=True),
+                   lambda i, p: W.warp_feat_ref(i, p, abs_pos=True),
+                   (img, pos), dtype, f"UHD flownet ds4 abs_pos B,C,Ho,Wo="
+                   f"{(b, 3, *pos.shape[2:])}", False)
+        del img, flow, grid, pos
+    torch.cuda.empty_cache()
+
+
+def phase_uhd(device, model_dir, rng, card):
+    """v2.3 ``-u``: f32 card vs CPU at UHD_CHECK, then bf16 4K B=2 frames/s,
+    launches against ``plan.kernel_sites`` (no u8-origin launch from the
+    flownet: its warps are float warps; the fusionnet keeps its two K4
+    warps), and the PSNR of the first item against f32 on the CPU."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.models.v23_arch import LABEL
+
+    name = "v2.3 -u"
+    checked = check_on_card(name, model_dir, device, rng, UHD_CHECK,
+                            uhd_mode=True)
+    require(checked.get("conv3x3", 0) > 0,
+            f"{name}: no conv3x3 site at {UHD_CHECK}")
+    b, h, w = UHD_BENCH
+    sess = RIFE(str(model_dir), device=device, uhd_mode=True)
+    launches, res, (f0, f1), fps = bench(sess, device, f"{LABEL}, {name}",
+                                         card, b, (h, w))
+    per_step = kernel_sites(sess, h, w)
+    print(f"{name} launches over {BENCH_STEPS} steps: {launches}; expected "
+          f"per step: {per_step}", flush=True)
+    require(launches == {k: v * BENCH_STEPS for k, v in per_step.items()},
+            f"{name}: launch counts differ from plan.kernel_sites")
+    u8_kernels = {"warp_pair", "warp_ds4_pair", "warp_ds2", "warp_render"}
+    require(not u8_kernels & set(per_step) and per_step.get("warp_u8") == 2
+            and per_step.get("conv3x3", 0) > 0,
+            f"{name}: a u8-origin warp planned in the UHD flownet, or no "
+            f"conv3x3 site")
+    del sess
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    want = RIFE(str(model_dir), device="cpu", uhd_mode=True).process_batch(
+        f0[:1], f1[:1], np.full(1, 0.5, np.float32))
+    p = psnr(res[:1], want)
+    print(f"{name} bf16 cuda vs f32 cpu {h}x{w} (first item of the B={b} "
+          f"step; CPU reference in {time.perf_counter() - t0:.1f} s): PSNR "
+          f"{p:.2f} dB", flush=True)
+    require(p >= 30.0, f"bf16 {name} PSNR {p:.2f} dB < 30 dB")
+    return launches, fps
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one "
@@ -800,6 +901,7 @@ def main() -> int:
     phase_sigmoid(device, rng)
     phase_warp_ds2(device, rng, report)
     phase_single_warp(device, rng, report)
+    phase_uhd_warps(device, rng, report)
     phase_conv(device, rng, report, sites)
     runs = {"v4.6": phase_v46(device, v46_dir, rng, card),
             "v2.3": phase_v23(device, v23_dir, rng, card, v23)}
@@ -819,6 +921,9 @@ def main() -> int:
         name = f"{model} -x -z fuse_ds2"
         runs[name] = phase_modes(device, name, mdir, label, rng, card,
                                  TTA_CHECK, TTA_BATCH, **tta)
+    runs["v2.3 -u"] = phase_uhd(device, v23_dir, rng, card)
+    print(f"v2.3 bf16 4K -u B={UHD_BENCH[0]}: {runs['v2.3 -u'][1]:.3f} "
+          f"frames/s; card {card}", flush=True)
     by_path = {path: launches for path, (launches, _) in runs.items()}
 
     kernels = []

@@ -73,13 +73,13 @@
 // DRAM moves 32-byte sectors, so K7 reads every sector of flow rows 4i+1 and
 // 4i+2 (1/2 of the flows) and of at least three image rows in four.
 //
-// K3 keeps one thread per output pixel handling every channel: the corner
-// indices and weights are computed once and reused for the three planes;
-// threads of a warp cover 32 neighbouring x on one row, so flow reads and
-// output writes coalesce and smooth flows' corner gathers hit L1/L2.  None of
-// the TPU's band/slab/sheared staging or VMEM stripes carries over: those
-// exist because a TPU has no gather unit.
-//
+// K3 (warp_ds2_kernel) keeps one thread per output pixel handling every
+// channel, each phase's corner indices and weights computed once for the
+// three planes, but walks the four phases one at a time under the 32-register
+// cap, so an SM holds more warps (PERF.md section 6 gives the measurements).
+// None of the TPU's band/slab/sheared staging or VMEM stripes carries over:
+// those exist because a TPU has no gather unit.
+
 // Rounding: every f32 operation uses the _rn intrinsics, so nvcc cannot
 // contract a multiply and an add into an FMA, and the result follows the twin's
 // operation order exactly.  Storage-dtype steps (K6 blend, K7 averages) round
@@ -161,45 +161,6 @@ __device__ __forceinline__ Corners flow_corners(const T* flow, size_t plane,
   float sx = __fadd_rn(static_cast<float>(x), ldf(flow + p));
   float sy = __fadd_rn(static_cast<float>(y), ldf(flow + plane + p));
   return corners(sx, sy, h, w);
-}
-
-// K3: output pixel (m, n) of the 1/2-resolution grid averages the warps of the
-// four full-resolution pixels (2m+pi, 2n+pj), phase p = 2*pi + pj, each sampled
-// at pixel + flow(pixel) and cast to the storage dtype; then v0/2 + v2/2 and
-// v1/2 + v3/2 (rows), then their 0.5/0.5 average (columns), in that dtype.
-// None of the Pallas kernel's machinery carries over: no u8-quad words, no
-// slabs, no per-(band, window) ranges, no phase de-interleaved operands -- the
-// thread reads the four phase positions' flow itself and gathers directly.
-template <typename T>
-__global__ void warp_ds2_kernel(const T* __restrict__ img, const T* __restrict__ flow,
-                                T* __restrict__ out, int h, int w) {
-  int ho = h >> 1, wo = w >> 1;
-  int n = blockIdx.x * blockDim.x + threadIdx.x;
-  int m = blockIdx.y * blockDim.y + threadIdx.y;
-  if (n >= wo || m >= ho) return;
-  int b = blockIdx.z;
-  size_t plane = static_cast<size_t>(h) * w;
-  size_t plane_o = static_cast<size_t>(ho) * wo;
-  const T* src = img + 3 * plane * b;
-  const T* fl = flow + 2 * plane * b;
-  Corners k[4];
-#pragma unroll
-  for (int pi = 0; pi < 2; ++pi)
-#pragma unroll
-    for (int pj = 0; pj < 2; ++pj)
-      k[2 * pi + pj] = flow_corners(fl, plane, 2 * n + pj, 2 * m + pi, h, w);
-  T* dst = out + 3 * plane_o * b + static_cast<size_t>(m) * wo + n;
-#pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const T* s = src + c * plane;
-    float v[4];
-#pragma unroll
-    for (int p = 0; p < 4; ++p) v[p] = q<T>(sample(s, k[p]));
-    float u0 = q<T>(__fadd_rn(q<T>(__fmul_rn(v[0], 0.5f)), q<T>(__fmul_rn(v[2], 0.5f))));
-    float u1 = q<T>(__fadd_rn(q<T>(__fmul_rn(v[1], 0.5f)), q<T>(__fmul_rn(v[3], 0.5f))));
-    dst[c * plane_o] =
-        store<T>(__fadd_rn(q<T>(__fmul_rn(u0, 0.5f)), q<T>(__fmul_rn(u1, 0.5f))));
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -422,7 +383,65 @@ __global__ void __launch_bounds__(256, 4) warp_ds4_pair_kernel(
   }
 }
 
-constexpr int kBx = 32, kBy = 8;
+// K3: output pixel (m, n) of the 1/2-resolution grid averages the warps of the
+// four full-resolution pixels (2m+pi, 2n+pj), each sampled at pixel +
+// flow(pixel) and cast to the storage dtype; per column pj the rows average
+// 0.5/0.5 (u_pj), then the two columns, in that dtype.  A thread an output
+// under a 32-register bound (8 blocks of 256 threads an SM), kDs2Bx x kDs2By
+// outputs a block.  It walks the phases column by column, (0,0), (1,0), then
+// (0,1), (1,1), with one phase's corners live at a time (12 gathers in flight)
+// and u_pj kept for the three channels, so it fits the bound.  kVec: the flows of the phase pair
+// (2n, 2n+1) of each row are one 2-element load (W is even, so they are
+// aligned wherever the flow is); otherwise the same kernel loads them one by
+// one.  The other designs tried and their times are in PERF.md section 6.
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(256, 8)
+    warp_ds2_kernel(const T* __restrict__ img, const T* __restrict__ flow, T* __restrict__ out,
+                    int h, int w) {
+  const int ho = h >> 1, wo = w >> 1;
+  const int n = blockIdx.x * blockDim.x + threadIdx.x;
+  const int m = blockIdx.y * blockDim.y + threadIdx.y;
+  if (n >= wo || m >= ho) return;
+  const int b = blockIdx.z;
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t plane_o = static_cast<size_t>(ho) * wo;
+  const T* src = img + 3 * plane * b;
+  const T* fl = flow + 2 * plane * b;
+  float2 fx[2], fy[2];
+#pragma unroll
+  for (int pi = 0; pi < 2; ++pi) {
+    const size_t p = static_cast<size_t>(2 * m + pi) * w + 2 * n;
+    fx[pi] = ld2(fl + p, 2, kVec);
+    fy[pi] = ld2(fl + plane + p, 2, kVec);
+  }
+  float u[2][3];
+#pragma unroll
+  for (int pj = 0; pj < 2; ++pj) {
+    float top[3];
+#pragma unroll
+    for (int pi = 0; pi < 2; ++pi) {
+      const Corners k =
+          corners(__fadd_rn(static_cast<float>(2 * n + pj), pj ? fx[pi].y : fx[pi].x),
+                  __fadd_rn(static_cast<float>(2 * m + pi), pj ? fy[pi].y : fy[pi].x), h, w);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float v = q<T>(sample(src + c * plane, k));
+        if (pi == 0)
+          top[c] = v;
+        else
+          u[pj][c] = q<T>(__fadd_rn(q<T>(__fmul_rn(top[c], 0.5f)), q<T>(__fmul_rn(v, 0.5f))));
+      }
+    }
+  }
+  T* dst = out + 3 * plane_o * b + static_cast<size_t>(m) * wo + n;
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    dst[c * plane_o] = store<T>(
+        __fadd_rn(q<T>(__fmul_rn(u[0][c], 0.5f)), q<T>(__fmul_rn(u[1][c], 0.5f))));
+}
+
+constexpr int kBx = 32, kBy = 8;      // K7's block of 1/4-resolution outputs
+constexpr int kDs2Bx = 32, kDs2By = 4;  // K3's block of 1/2-resolution outputs
 
 inline dim3 grid_for(int w, int h, int z) {
   return dim3((w + kBx - 1) / kBx, (h + kBy - 1) / kBy, z);
@@ -512,6 +531,20 @@ void launch_render(const void* img_m, const void* flow_m, const void* img_i, con
     render_as<T, false>(grid, block, s, img_m, flow_m, img_i, flow_i, mask, out, h, w);
 }
 
+// K3; the vector flow loads where the flow is aligned to two elements
+template <typename T>
+void launch_ds2(dim3 grid, cudaStream_t s, const void* img, const void* flow, void* out, int h,
+                int w) {
+  const dim3 block(kDs2Bx, kDs2By);
+  const T* i = static_cast<const T*>(img);
+  const T* f = static_cast<const T*>(flow);
+  T* o = static_cast<T*>(out);
+  if (aligned(flow, 2 * sizeof(T)))
+    warp_ds2_kernel<T, true><<<grid, block, 0, s>>>(i, f, o, h, w);
+  else
+    warp_ds2_kernel<T, false><<<grid, block, 0, s>>>(i, f, o, h, w);
+}
+
 }  // namespace
 
 // C interface.  All tensors are contiguous NCHW in one dtype (bf16 != 0 ->
@@ -571,23 +604,16 @@ int rife_warp_ds4_pair(const void* img_a, const void* flow_a, const void* img_b,
   return static_cast<int>(cudaGetLastError());
 }
 
-// img (B,3,H,W), flow (B,2,H,W), out (B,3,H/2,W/2); H and W even.
+// K3.  img (B,3,H,W), flow (B,2,H,W), out (B,3,H/2,W/2); H and W even.
 int rife_warp_ds2(const void* img, const void* flow, void* out, int batch, int h, int w,
                   int bf16, void* stream) {
   if ((h | w) & 1) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid = grid_for(w / 2, h / 2, batch), block(kBx, kBy);
+  dim3 grid((w / 2 + kDs2Bx - 1) / kDs2Bx, (h / 2 + kDs2By - 1) / kDs2By, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    using T = __nv_bfloat16;
-    warp_ds2_kernel<T><<<grid, block, 0, s>>>(static_cast<const T*>(img),
-                                              static_cast<const T*>(flow), static_cast<T*>(out),
-                                              h, w);
-  } else {
-    using T = float;
-    warp_ds2_kernel<T><<<grid, block, 0, s>>>(static_cast<const T*>(img),
-                                              static_cast<const T*>(flow), static_cast<T*>(out),
-                                              h, w);
-  }
+  if (bf16)
+    launch_ds2<__nv_bfloat16>(grid, s, img, flow, out, h, w);
+  else
+    launch_ds2<float>(grid, s, img, flow, out, h, w);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,6 +1,6 @@
 """Forward pipelines (port of ``rife_tpu/engine/pipelines.py``: ``forward_v4``
 and the v2 path of ``forward_v1v2``, plain and with the ``-x``/``-z`` TTA
-modes; UHD and the v1 family are not ported).
+modes and UHD ``-u``; the v1 family is not ported).
 
 Spatial TTA (``-x``) runs the 8 dihedral views as two batch groups of 4B,
 canonical (H,W) and transposed (W,H) (``frame.expand_views8``); temporal TTA
@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import frame
+from ..ops.torch_ops import resize2d
 
 V4_TAPS = ("flow0", "flow1", "flow2", "flow3")
 CONTEXT_FEATS = ("f1", "f2", "f3", "f4")
@@ -155,28 +156,40 @@ def _v2_render(run, img0, img1, flow, flow_rev):
 
 def forward_v2(nets, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
                pad_h: int, pad_w: int, dtype: torch.dtype, tta: bool = False,
-               temporal: bool = False) -> torch.Tensor:
+               temporal: bool = False, uhd: bool = False) -> torch.Tensor:
     """u8 frames (B,H,W,3) -> the u8 midpoint frame (B,H,W,3), v2 family.
 
     ``flownet`` gives the flow at half resolution (B,4,H/2,W/2); with
     ``-z`` it also runs on the swapped pair and ``flow_temporal_avg_v2``
     merges the two; with ``-x`` each view group runs as a batch of 4B
     (contextnet 8B) and ``flow_views_avg`` merges the 8 views' flows before
-    the render."""
+    the render.  With ``-u`` every flownet run takes the frames halved by
+    ``resize2d`` and its ctx sets ``no_u8_warp`` (the resized frames are not
+    u8-valued); its flow is resized x2 and then scaled by 2 in its own dtype
+    (``_run_flownet``).  The contextnet and fusionnet run as without ``-u``."""
     h, w = in0_u8.shape[1], in0_u8.shape[2]
     b = in0_u8.shape[0]
     img0 = frame.preprocess(in0_u8, pad_h, pad_w, dtype)
     img1 = frame.preprocess(in1_u8, pad_h, pad_w, dtype)
 
-    def run(net, inputs, outputs):
-        return nets[net].run(inputs, outputs, {"w": weights[net]})
+    def run(net, inputs, outputs, **ctx):
+        return nets[net].run(inputs, outputs, {"w": weights[net], **ctx})
+
+    def flownet(i0, i1):
+        if not uhd:
+            return run("flownet", {"input0": i0, "input1": i1}, ["flow"])[0]
+        hh, hw = i0.shape[2] // 2, i0.shape[3] // 2
+        flow = run("flownet", {"input0": resize2d(i0, hh, hw),
+                               "input1": resize2d(i1, hh, hw)}, ["flow"],
+                   no_u8_warp=True)[0]
+        flow = resize2d(flow, flow.shape[2] * 2, flow.shape[3] * 2)
+        return flow * torch.tensor(2.0, dtype=flow.dtype, device=flow.device)
 
     def flows(i0, i1):
-        flow = run("flownet", {"input0": i0, "input1": i1}, ["flow"])[0]
+        flow = flownet(i0, i1)
         if not temporal:
             return flow, None
-        flow_rev = run("flownet", {"input0": i1, "input1": i0}, ["flow"])[0]
-        return frame.flow_temporal_avg_v2(flow, flow_rev)
+        return frame.flow_temporal_avg_v2(flow, flownet(i1, i0))
 
     if not tta:
         out = _v2_render(run, img0, img1, *flows(img0, img1))

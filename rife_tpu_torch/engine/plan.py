@@ -7,11 +7,12 @@ schedule, in both view geometries), propagating (C, H, W) shapes through
 every layer kind the port runs, and applies the dispatch rules of
 ``ops/torch_ops.py``: the pair kernels for paired u8-origin warps, K3 for a
 ``rife.WarpDs2`` of a frame copy, the single-warp kernel in its u8 or float
-mode for the rest, and ``conv3x3`` where the gates of ``ops/conv.py`` take a
-conv site.  The result, launches per kernel per step, does not depend on the
-batch size.  ``chip_smoke.py``
-holds the card's launch counters to it, and times ``conv3x3`` at each site
-``conv_sites`` lists.
+mode for the rest (float only in a run whose ctx sets ``no_u8_warp``: the UHD
+flownet, walked at its halved geometry), and ``conv3x3`` where the gates of
+``ops/conv.py`` take a conv site.  The result, launches per kernel per step,
+does not depend on the batch size.  ``chip_smoke.py`` holds the card's
+launch counters to it, and times ``conv3x3`` at each site ``conv_sites``
+lists.
 """
 
 from __future__ import annotations
@@ -44,13 +45,14 @@ def _cut(shape: Shape, axis: int, start: int, end: int) -> Shape:
     return tuple(dims)
 
 
-def _walk(ex, inputs: Dict[str, Shape], outputs):
-    """(kernel launches, blob shapes, conv3x3 sites) of one run of ``ex``;
-    a site is the kernel call's (part channels, cout, stride, activation
-    code, input H, W, deconv); a deconv site's cout counts its four output
+def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
+    """(kernel launches, blob shapes, conv3x3 sites) of one run of ``ex``
+    with ``run_ctx`` over its ctx, as ``Executor.run`` merges them; a site
+    is the kernel call's (part channels, cout, stride, activation code,
+    input H, W, deconv); a deconv site's cout counts its four output
     phases."""
-    g, ctx = ex.graph, ex.ctx
-    u8 = ctx.get("u8_image_blobs", ())
+    g, ctx = ex.graph, {**ex.ctx, **(run_ctx or {})}
+    u8 = () if ctx.get("no_u8_warp") else ctx.get("u8_image_blobs", ())
     planar = ctx.get("planar_convs", False)
     shapes = dict(inputs)
     sites: Counter = Counter()
@@ -178,7 +180,8 @@ def _plan(session, h: int, w: int):
     both frames at once.  Spatial TTA runs each net once per view geometry,
     canonical and transposed; temporal TTA runs the flownet (v4: every tap
     and the render; v2: the flownet and the fusionnet) once more, on the
-    swapped pair."""
+    swapped pair.  UHD (v2): the flownet runs on the frames halved, without
+    u8-origin warps, and its flow comes back at the usual half resolution."""
     ph, pw = pad_to(h), pad_to(w)
     tta, temporal = session.tta_mode, session.tta_temporal_mode
     geoms = [(ph, pw), (pw, ph)] if tta else [(ph, pw)]
@@ -188,8 +191,8 @@ def _plan(session, h: int, w: int):
     sites: Counter = Counter()
     convs: List[tuple] = []
 
-    def walk(net, inputs, outputs, factor, runs=1):
-        more, shapes, found = _walk(ex[net], inputs, outputs)
+    def walk(net, inputs, outputs, factor, runs=1, run_ctx=None):
+        more, shapes, found = _walk(ex[net], inputs, outputs, run_ctx)
         for _ in range(runs):
             sites.update(more)
             convs.extend((factor, c) for c in found)
@@ -205,8 +208,15 @@ def _plan(session, h: int, w: int):
                                      sweeps)[tap]
             walk("flownet", feed, ["out0"], views, sweeps)
             continue
-        flow = walk("flownet", {"input0": img, "input1": img}, ["flow"],
-                    views, sweeps)["flow"]
+        if session.uhd_mode:
+            half = (3, gh // 2, gw // 2)
+            c, fh, fw = walk("flownet", {"input0": half, "input1": half},
+                             ["flow"], views, sweeps,
+                             {"no_u8_warp": True})["flow"]
+            flow = (c, 2 * fh, 2 * fw)
+        else:
+            flow = walk("flownet", {"input0": img, "input1": img}, ["flow"],
+                        views, sweeps)["flow"]
         shapes = walk("contextnet", {"input.1": img, "flow.0": (2, *flow[1:])},
                       list(CONTEXT_FEATS), 2 * views)
         feats = {str(3 + i + k): shapes[f] for k in (0, 4)

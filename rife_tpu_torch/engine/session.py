@@ -1,5 +1,5 @@
 """RIFE session on PyTorch (port of ``rife_tpu/engine/session.py``, the v4
-and v2 families, plain 2x and the ``-x``/``-z`` TTA modes).
+and v2 families, plain 2x, the ``-x``/``-z`` TTA modes and UHD ``-u``).
 
 One session owns the model's nets after the rewrite chain, their weights on
 the session's device, and one ``Executor`` per net over
@@ -16,9 +16,10 @@ take the ``conv3x3`` kernel (``ops/conv.py``).
 of each warp-then-1/2-downscale into ``rife.WarpDs2`` (K3 on a frame copy).
 Off by default, as there; the port reads no ``RIFE_TPU_*`` variable.
 
-Left out, as TPU-only machinery: planar/region executors, the warp-variant
-probe, the compile cache.  ``-u`` is ignored for the v4 family, as in the JAX
-session; UHD for v2 (ROADMAP A10) and the v1 family (A9) raise
+``uhd_mode`` (``-u``) runs the v2 flownet on frames halved by ``resize2d``
+(``engine/pipelines.py``); it is ignored for the v4 family, as in the JAX
+session.  Left out, as TPU-only machinery: planar/region executors, the
+warp-variant probe, the compile cache.  The v1 family (ROADMAP A9) raises
 ``NotImplementedError``.
 """
 
@@ -110,12 +111,10 @@ class RIFE:
         self.dtype = dtype or default_dtype(self.device)
         self.model = load_model(model, model_root)
         family = self.model.family
-        # the v4 family ignores -u (rife_tpu session.py:102)
-        if uhd_mode and family != "v4":
-            raise NotImplementedError(
-                "UHD mode (-u) is not ported yet (ROADMAP queue A, A10)")
         self.tta_mode = tta_mode
         self.tta_temporal_mode = tta_temporal_mode
+        # the v4 family ignores -u (rife_tpu session.py:102)
+        self.uhd_mode = uhd_mode and family != "v4"
         if family == "v1":
             raise NotImplementedError(
                 f"{self.model.name} (v1 family) is not ported yet (ROADMAP "
@@ -179,7 +178,7 @@ class RIFE:
                     self.dtype, **modes)
             return pipelines.forward_v2(self.executors, self.weights, a, b,
                                         pad_to(h), pad_to(w), self.dtype,
-                                        **modes)
+                                        uhd=self.uhd_mode, **modes)
 
     def process_batch(self, in0, in1, timesteps) -> np.ndarray:
         """Interpolate a batch: (B,H,W,3) u8 pairs + (B,) timesteps -> u8."""

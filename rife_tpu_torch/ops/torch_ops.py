@@ -24,7 +24,8 @@ TPU's planar executor sends to its Pallas convs: in a net run with ctx
 site to the ``conv3x3`` kernel (K9-K12).  The warps dispatch into
 ``ops/warp.py``: the pair kernels for paired u8-origin warps, the fused warp
 + 1/2 downsample (K3) for ``rife.WarpDs2`` of a frame copy, the single-warp
-kernel for the rest (u8-origin mode K4, float mode K1/K2).
+kernel for the rest (u8-origin mode K4, float mode K1/K2).  A run whose ctx
+sets ``no_u8_warp`` (the UHD flownet) sends every warp to the float mode.
 """
 
 from __future__ import annotations
@@ -325,8 +326,23 @@ def _op_sigmoid(node, inputs, w, ctx):
 
 def _is_u8(blob: str, image: torch.Tensor, ctx) -> bool:
     """Only 3-channel value-copies of the input frames take the u8-origin
-    kernels (ROADMAP queue C #6)."""
-    return image.shape[1] == 3 and blob in ctx.get("u8_image_blobs", ())
+    kernels (ROADMAP queue C #6), and none in a run whose ctx sets
+    ``no_u8_warp``: the UHD flownet's resized frames are no longer u8-valued
+    (``jax_ops._is_u8_warp``)."""
+    return (not ctx.get("no_u8_warp") and image.shape[1] == 3
+            and blob in ctx.get("u8_image_blobs", ()))
+
+
+def _same_grid(node, image: torch.Tensor, flow: torch.Tensor) -> None:
+    """A warp's flow lies on its image's grid.  The JAX ops raise on any
+    other flow (a broadcast error); the kernels' twins would sample at the
+    flow's grid instead, so the check is made here.  (The v2.3
+    reconstruction's flownet meets it on a frame whose sides the 1/32 level
+    does not divide, as with ``-u`` on frames padded to 32 but not to 64.)"""
+    if image.shape[2:] != flow.shape[2:]:
+        raise ValueError(
+            f"{node.type} {node.name}: flow {tuple(flow.shape)} is not on the "
+            f"grid of image {tuple(image.shape)}")
 
 
 def _pair_ok(node, img_a, img_b, flow_a, flow_b, ctx) -> bool:
@@ -341,6 +357,7 @@ def _single(node, image, flow, blob, ctx, ds4: bool):
     float mode (K1/K2) otherwise.  ``ds4``: the fused warp + 1/4 downsample
     of ``rife.WarpDs4`` (``jax_ops._op_warp_ds4``), sampled at the absolute
     positions of the downsample's taps."""
+    _same_grid(node, image, flow)
     fn = W.warp_u8 if _is_u8(blob, image, ctx) else W.warp_feat
     image = image.contiguous()
     if not ds4:
@@ -362,16 +379,19 @@ def _op_warp_ds4(node, inputs, w, ctx):
                     ds4=True)]
 
 
-def _pair_inputs(inputs):
+def _pair_inputs(node, inputs):
     """Contiguous operands for the pair kernels (a v2 flownet warps channel
-    crops of Concat(input0, input1), which are strided views)."""
+    crops of Concat(input0, input1), which are strided views), each flow on
+    its image's grid."""
+    _same_grid(node, inputs[0], inputs[1])
+    _same_grid(node, inputs[2], inputs[3])
     return [t.contiguous() for t in inputs]
 
 
 def _op_warp_pair(node, inputs, w, ctx):
     img_a, flow_a, img_b, flow_b = inputs
     if _pair_ok(node, img_a, img_b, flow_a, flow_b, ctx):
-        return list(W.warp_pair(*_pair_inputs(inputs)))
+        return list(W.warp_pair(*_pair_inputs(node, inputs)))
     return [
         _single(node, img_a, flow_a, node.bottoms[0], ctx, ds4=False),
         _single(node, img_b, flow_b, node.bottoms[2], ctx, ds4=False),
@@ -383,7 +403,7 @@ def _op_warp_ds4_pair(node, inputs, w, ctx):
     h, wid = img_a.shape[2], img_a.shape[3]
     if (h % 4 == 0 and wid % 4 == 0
             and _pair_ok(node, img_a, img_b, flow_a, flow_b, ctx)):
-        return list(W.warp_ds4_pair(*_pair_inputs(inputs)))
+        return list(W.warp_ds4_pair(*_pair_inputs(node, inputs)))
     return [
         _single(node, img_a, flow_a, node.bottoms[0], ctx, ds4=True),
         _single(node, img_b, flow_b, node.bottoms[2], ctx, ds4=True),
@@ -399,6 +419,7 @@ def _op_warp_ds2(node, inputs, w, ctx):
     image, flow = inputs[0], inputs[1]
     h, wid = image.shape[2], image.shape[3]
     if h % 2 == 0 and wid % 2 == 0 and _is_u8(node.bottoms[0], image, ctx):
+        _same_grid(node, image, flow)
         return [W.warp_ds2(image.contiguous(), flow.contiguous())]
     y = _single(node, image, flow, node.bottoms[0], ctx, ds4=False)
     return [resize2d(y, round(h * 0.5), round(wid * 0.5))]
@@ -412,7 +433,7 @@ def _op_render_blend(node, inputs, w, ctx):
     img_m, flow_m, img_i, flow_i, mask = inputs
     planar = node.tops[0] in ctx.get("planar_outputs", ())
     if _pair_ok(node, img_m, img_i, flow_m, flow_i, ctx):
-        img_m, flow_m, img_i, flow_i = _pair_inputs(inputs[:4])
+        img_m, flow_m, img_i, flow_i = _pair_inputs(node, inputs[:4])
         out = W.warp_render(img_m, flow_m, img_i, flow_i,
                             mask[:, 0].contiguous())
         return [out if planar else out.permute(0, 2, 1, 3)]

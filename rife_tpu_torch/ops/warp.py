@@ -72,11 +72,12 @@ INV255 = 1.0 / 255.0  # used as f32(1/255), as the Pallas kernels do
 
 # K4/K5 (u8 modes) and K6: a block owns TILE_W x TILE_H output pixels, two
 # adjacent x a thread; K1/K2 (float mode): FEAT_TILE_W x FEAT_TILE_H, one a
-# thread; K7 keeps its fixed 32 x 8 1/4-resolution outputs, one a thread
-# (csrc/warp.cu kBx, kBy).  A block is whole warps of at most 256 threads.  Float mode: a tile's C
-# channels split into the fewest groups, a power of two of them, that bring
-# the output pixels times groups to FEAT_THREADS, each of at least
-# FEAT_MIN_GROUP channels (feat_group).
+# thread; K7 and K3 keep fixed blocks of 32 x 8 1/4-resolution and 32 x 4
+# 1/2-resolution outputs, one a thread (csrc/warp.cu kBx, kBy, kDs2Bx,
+# kDs2By).  A block is whole warps of at most 256 threads.  Float mode: a
+# tile's C channels split into the fewest groups, a power of two of them,
+# that bring the output pixels times groups to FEAT_THREADS, each of at
+# least FEAT_MIN_GROUP channels (feat_group).
 TILE_W, TILE_H = 64, 8
 FEAT_TILE_W, FEAT_TILE_H = 16, 16
 FEAT_THREADS = 2_000_000

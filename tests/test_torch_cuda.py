@@ -1,6 +1,6 @@
 """The port on the card: each CUDA kernel against its plain PyTorch twin, and
-the v4.6 and v2.3 slices on CUDA (plain, and ``-x -z`` with ``fuse_ds2``)
-against the same sessions on the CPU.
+the v4.6 and v2.3 slices on CUDA (plain, ``-x -z`` with ``fuse_ds2``, and
+v2.3 ``-u``) against the same sessions on the CPU.
 
 Every test here is marked ``cuda`` and skips without a GPU (a CUDA kernel has
 no CPU mode).  The file imports no jax, so it also runs where jax is absent:
@@ -543,17 +543,67 @@ def test_v23_slice_f32_matches_cpu(cuda_device, v23_dir, monkeypatch):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("shape", [(2, 68, 260), (2, 52, 196),
-                                   (1, 1088, 1920), (1, 1920, 1088)])
+                                   (1, 1088, 1920), (1, 1920, 1088),
+                                   (2, 1088, 1920), (1, 54, 198), (3, 2, 4),
+                                   (1, 2, 2)])
 def test_warp_ds2_kernel_matches_twin(cuda_device, shape, dtype):
+    """K3 bit for bit with its twin: the step's shapes, B=1, the transposed
+    geometry, odd H/2 and W/2 (1x54x198 -> 27x99), the smallest grids."""
     ia, fa, _, _, _ = inputs(11, *shape, dtype, cuda_device)
     W.reset_launches()
     got = W.warp_ds2(ia, fa)
     want = W.warp_ds2_ref(ia, fa)
     torch.cuda.synchronize()
     assert launched() == {"warp_ds2": 1}
-    check(got, want)
+    assert torch.equal(got, want)
     with pytest.raises(ValueError, match="even"):
         W.warp_ds2(ia[..., :-1].contiguous(), fa[..., :-1].contiguous())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(2, 52, 196), (1, 54, 198)])
+def test_warp_ds2_kernel_unaligned_flow(cuda_device, shape, dtype):
+    """A flow one element off its 2-element alignment takes the kernel's
+    scalar flow loads: still bit for bit with the twin."""
+    ia, fa, _, _, _ = inputs(12, *shape, dtype, cuda_device)
+    buf = torch.empty(fa.numel() + 1, device=cuda_device, dtype=dtype)
+    odd = buf[1:].view(fa.shape)
+    odd.copy_(fa)
+    assert odd.is_contiguous() and odd.data_ptr() % (2 * odd.element_size())
+    got = W.warp_ds2(ia, odd)
+    torch.cuda.synchronize()
+    assert torch.equal(got, W.warp_ds2_ref(ia, fa))
+
+
+def test_uhd_f32_matches_cpu(cuda_device, v23_dir, monkeypatch):
+    """``-u`` (with ``-x -z``) on the card against the CPU session, every
+    admissible conv site on conv3x3: the UHD flownet launches only float
+    warps, and the launches equal plan.kernel_sites."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.ops import conv as CV
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
+    monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
+    a, b = frames(50, 110)
+    ts = np.full(2, 0.5, np.float32)
+    for kw in ({}, {"tta_mode": True, "tta_temporal_mode": True,
+                    "fuse_ds2": True}):
+        want = RIFE(str(v23_dir), device="cpu", uhd_mode=True,
+                    **kw).process_batch(a, b, ts)
+        sess = RIFE(str(v23_dir), device=cuda_device, dtype=torch.float32,
+                    uhd_mode=True, **kw)
+        W.reset_launches()
+        CV.reset_launches()
+        got = sess.process_batch(a, b, ts)
+        counts = {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items()
+                  if v}
+        assert counts == kernel_sites(sess, 50, 110)
+        assert set(counts) == {"warp_feat", "warp_u8", "conv3x3"}
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
 
 
 @pytest.mark.parametrize("model", ["v4.6", "v2.3"])

@@ -173,3 +173,21 @@ def test_stream_is_the_guarded_devices(rec, monkeypatch):
     monkeypatch.setattr(OnCard, "card", torch.device("cuda", 2))
     warp_calls(torch.float32)[0][2]()
     assert seen == [(torch.device("cuda", 2), [torch.device("cuda", 2)])]
+
+
+@pytest.mark.parametrize("case", ["odd H", "odd W", "strided image",
+                                  "strided flow"])
+def test_warp_ds2_rejects_odd_sizes_and_strided_operands(rec, case):
+    """K3 takes even H and W (its output is the exact 1/2 grid) and
+    contiguous operands; anything else raises before any C call."""
+    shape = {"odd H": (7, 8), "odd W": (8, 7)}.get(case, (8, 8))
+    img = on_card(1, 3, *shape)
+    flow = on_card(1, 2, *shape)
+    if case == "strided image":
+        img = on_card(1, 3, 8, 10)[..., :8]
+    if case == "strided flow":
+        flow = on_card(1, 2, 8, 10)[..., :8]
+    match = "even H and W" if case.startswith("odd") else "contiguous"
+    with pytest.raises(ValueError, match=match):
+        W.warp_ds2(img, flow)
+    assert rec.calls == [] and counts() == {}

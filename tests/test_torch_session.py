@@ -125,8 +125,8 @@ def test_t_shortcuts_and_single_pair(model_dir):
 
 def test_unported_modes_raise(model_dir):
     """TTA runs on the v4 family and ``-u`` is ignored there, as in the JAX
-    session (tests/test_torch_tta_session.py); the v1 family and UHD on v2
-    (same file) are still unported."""
+    session (tests/test_torch_tta_session.py; UHD on v2:
+    tests/test_torch_uhd_session.py); the v1 family is still unported."""
     for mode in ({"tta_mode": True}, {"tta_temporal_mode": True},
                  {"uhd_mode": True}):
         RIFE(str(model_dir), device="cpu", **mode)

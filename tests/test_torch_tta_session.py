@@ -1,6 +1,7 @@
 """The ``-x``/``-z`` TTA sessions of the v4.6-architecture graph (in-repo
 reconstruction, synthetic weights, mini widths) against rife_tpu.RIFE with
-the same modes, CPU, f32, and the ``-u`` rule of the v4 family.
+the same modes, CPU, f32, and the ``-u`` rule of each family (ignored for
+v4, run for v2).
 
 The JAX package on the CPU warps with the XLA ``warp_at`` form and the port
 with the twins of the Pallas form, so the bar is that of
@@ -107,9 +108,17 @@ def test_uhd_mode_is_ignored_for_v4(model_dir):
 
 
 def test_uhd_mode_still_raises_for_v2(tmp_path):
+    """Unlike v4, the v2 family takes ``-u``: it runs, and its result
+    differs from the plain path's (the flownet sees the frames halved;
+    tests/test_torch_uhd_session.py holds it to rife_tpu)."""
     v23 = write_v23_params(tmp_path, (8, 8, 8, 8, 4))
-    with pytest.raises(NotImplementedError, match="A10"):
-        RIFE(str(v23), device="cpu", uhd_mode=True)
+    a, b = frames(64, 128, seed=4)
+    half = np.full(2, 0.5, np.float32)
+    plain = RIFE(str(v23), device="cpu").process_batch(a, b, half)
+    uhd = RIFE(str(v23), device="cpu", uhd_mode=True).process_batch(a, b,
+                                                                    half)
+    assert uhd.shape == plain.shape and uhd.dtype == np.uint8
+    assert not np.array_equal(uhd, plain)
 
 
 @pytest.mark.parametrize("modes", [{"tta_mode": True},

@@ -3,12 +3,13 @@
 Runs the 2x bf16 step of the v4.6-architecture graph or the
 v2.3-architecture graphs (in-repo reconstructions, synthetic weights) at
 1080p, B=8 by default, plain or with ``--fuse-ds2`` and ``--tta`` (``-x -z``),
-under ``torch.profiler`` and prints: the step's wall time, the summed device
-time of its kernels, the device's idle share over the profiled window, and
-the kernels ranked by device time.  Needs one NVIDIA GPU.
+or with ``--uhd`` (``-u``, v2.3, on 2160x3840 frames), under
+``torch.profiler`` and prints: the step's wall time, the summed device time
+of its kernels, the device's idle share over the profiled window, and the
+kernels ranked by device time.  Needs one NVIDIA GPU.
 
 Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3]
-     [--fuse-ds2] [--tta] [--table PATH]
+     [--fuse-ds2] [--tta] [--uhd] [--table PATH]
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ def main() -> int:
     ap.add_argument("--fuse-ds2", action="store_true",
                     help="RIFE(..., fuse_ds2=True)")
     ap.add_argument("--tta", action="store_true", help="-x -z TTA")
+    ap.add_argument("--uhd", action="store_true",
+                    help="-u on 2160x3840 frames (v2.3)")
     ap.add_argument("--table", type=Path, help="write the full table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -52,9 +55,12 @@ def main() -> int:
         from rife_tpu_torch.models.v46_arch import LABEL, write_flownet_param
 
         model_dir = write_flownet_param(models)
+    if args.uhd and args.model != "v2.3":
+        ap.error("--uhd runs the v2 family only (v4 ignores -u)")
     sess = RIFE(str(model_dir), device="cuda", fuse_ds2=args.fuse_ds2,
-                tta_mode=args.tta, tta_temporal_mode=args.tta)
-    b, h, w = args.batch, 1080, 1920
+                tta_mode=args.tta, tta_temporal_mode=args.tta,
+                uhd_mode=args.uhd)
+    b, (h, w) = args.batch, (2160, 3840) if args.uhd else (1080, 1920)
     rng = np.random.default_rng(0)
     f0 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), np.uint8)).cuda()
     f1 = torch.roll(f0, shifts=(3, -5), dims=(1, 2))
@@ -74,7 +80,8 @@ def main() -> int:
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     step_ms = wall / args.steps * 1e3
-    modes = " fuse_ds2" * args.fuse_ds2 + " -x -z" * args.tta
+    modes = (" fuse_ds2" * args.fuse_ds2 + " -x -z" * args.tta
+             + " -u" * args.uhd)
     print(f"{LABEL},{modes or ' plain'}, bf16 {h}x{w} B={b}, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"step wall {step_ms:.3f} ms (profiled), device kernel time "

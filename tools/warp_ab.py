@@ -14,8 +14,8 @@ bf16 unless noted):
 The two checkouts' outputs must be equal bit for bit.  Every time is printed
 beside its bound (each input byte read once and each output byte written
 once, over 3.35 TB/s) and written, with the card's name and power limit, to
-``--out``; the new checkout's gathering, render and ds4 kernels' registers
-and spills are printed from the compiler's report.
+``--out``; both checkouts' gathering, render, ds4 and ds2 (K3) kernels'
+registers and spills are printed from the compiler's report.
 
 Run from the repository root on one GPU, e.g. against the parent commit
 unpacked (``git archive``) into a directory that .gitignore lists:
@@ -146,16 +146,19 @@ def main() -> int:
     load_package(args.new.resolve(), "new_rife")
     old = importlib.import_module("old_rife.ops.warp")
     new = importlib.import_module("new_rife.ops.warp")
-    kernel = ""
-    report = importlib.import_module("new_rife.native.build").compile_library()
-    for ln in report.splitlines():
-        if "Compiling entry function" in ln:
-            kernel = ln.split("'")[1]
-        elif any(k in kernel for k in ("gather", "render", "ds4_pair")) and (
-                "registers" in ln or (
-                    "spill" in ln and "0 bytes spill stores" not in ln)):
-            print(f"ptxas {kernel}: {ln.split(':', 1)[-1].strip()}",
-                  flush=True)
+    for which in ("old", "new"):
+        kernel = ""
+        report = importlib.import_module(
+            f"{which}_rife.native.build").compile_library()
+        for ln in report.splitlines():
+            if "Compiling entry function" in ln:
+                kernel = ln.split("'")[1]
+            elif any(k in kernel for k in ("gather", "render", "ds4_pair",
+                                           "ds2")) and (
+                    "registers" in ln or (
+                        "spill" in ln and "0 bytes spill stores" not in ln)):
+                print(f"ptxas {which} {kernel}: "
+                      f"{ln.split(':', 1)[-1].strip()}", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(20261016)
     rows = []
     bf = torch.bfloat16
