@@ -2,10 +2,12 @@
 """Quickest proof that the PyTorch port runs on an NVIDIA GPU.
 
 Drives ``rife_tpu_torch`` on one card, through the entry points a user calls
-(``RIFE(...).process_batch`` / ``process_batch_device``), on seven paths at
-full width: the v4.6-architecture graph and the v2.3-architecture graphs
-(in-repo reconstructions, synthetic weights), each plain, with ``fuse_ds2``
-and with ``-x -z`` TTA plus ``fuse_ds2``, and v2.3 with UHD ``-u`` at 4K:
+(``RIFE(...).process_batch`` / ``process_batch_device``, and the CLI
+``rife_tpu_torch.cli.main``), on seven session paths at full width: the
+v4.6-architecture graph and the v2.3-architecture graphs (in-repo
+reconstructions, synthetic weights), each plain, with ``fuse_ds2`` and with
+``-x -z`` TTA plus ``fuse_ds2``, and v2.3 with UHD ``-u`` at 4K; then three
+CLI paths through the load -> proc -> save runner and the image codecs:
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
@@ -59,7 +61,21 @@ and with ``-x -z`` TTA plus ``fuse_ds2``, and v2.3 with UHD ``-u`` at 4K:
    on ``conv3x3``); then bf16 4K (2160x3840) B=2 frames/s, launches equal to
    ``plan.kernel_sites`` (no u8-origin launch from the flownet), and the PSNR
    of its first item against f32 on the CPU;
-9. prints the kernels' JSON line (launches of each path's counted run), the
+9. runs the CLI in this process (bf16 on cuda:0): (a) directory mode, v4.6,
+   32 smooth 1280x720 frames written as PNG by the port's encoder, ``-j
+   2:8:<cores, at most 16>``: 64 outputs of the frame size, the t=0/1
+   copies equal to their inputs and the 31 midpoints equal to
+   ``RIFE.process_batch`` on the same batches of 8 (tail padded) byte for
+   byte, launches equal to the plan times the batches; its wall frames/s
+   beside the runner's stage summary, the device-only frames/s of the same
+   step, the core count and the codec in use; then the runner alone on 256
+   in-memory tasks (no codecs), its pinned side-stream path and its sync
+   path in turns, byte for byte equal, each beside the device-only rate; (b) pair mode, v2.3 at 1080p,
+   equal to ``RIFE.process`` byte for byte, launches as the plan says; (c)
+   ``-g 0,0 -j 1:4,4:2`` over the first 8 frames, byte for byte equal to
+   one session at ``-j 1:4:2``; and the rows of B=1, 3, 4 and 7 steps
+   against the same rows of a B=8 step (why the runner pads);
+10. prints the kernels' JSON line (launches of each path's counted run), the
    nvidia-smi line and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
@@ -95,6 +111,15 @@ TTA_CHECK = (1, 256, 448)
 UHD_CHECK = (1, 576, 1024)
 UHD_BENCH = (2, 2160, 3840)
 BENCH = (8, 1080, 1920)
+# the CLI phase: directory mode over CLI_FRAMES frames of CLI_SIZE at
+# -j 2:CLI_BATCH:<cores, at most 16>; pair mode at 1080p; two sessions on
+# one card over the first CLI_MULTI frames
+CLI_FRAMES = 32
+CLI_SIZE = (720, 1280)
+CLI_BATCH = 8
+CLI_MULTI = 8
+CLI_MULTI_BATCH = 4
+RUNNER_TASKS = 256  # the runner without codecs: 32 steps of B=8 at 720p
 TTA_BATCH = 2
 BENCH_STEPS = 5
 V23_PSNR_ITEMS = 2
@@ -850,6 +875,239 @@ def phase_uhd(device, model_dir, rng, card):
     return launches, fps
 
 
+def moving_frames(rng, n, h, w, step=2):
+    """n u8 frames (h,w,3) of one smooth scene panning ``step`` px a frame."""
+    base = smooth_field(rng, 1, h + 16, w + 16 + step * n, 3)[0] * 60 + 128
+    base += rng.normal(size=base.shape).astype(np.float32) * 8
+    base = np.clip(base, 0, 255).astype(np.uint8)
+    return [np.ascontiguousarray(base[8:8 + h, step * k:step * k + w])
+            for k in range(n)]
+
+
+def run_cli(argv, what):
+    """``rife_tpu_torch.cli.main(argv)`` in this process, every launch
+    counter set to 0 just before and read just after; returns (launches,
+    wall seconds, the verbose lines on the sessions' build time and the
+    runner's stages)."""
+    import contextlib
+    import io
+
+    from rife_tpu_torch import cli
+
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv + ["-v"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts()
+    summary = " ".join(ln for ln in out.getvalue().splitlines()
+                       if ln.startswith(("sessions:", "pipeline:")))
+    require(rc == 0, f"{what}: rife_tpu_torch.cli returned {rc}")
+    return launches, dt, summary
+
+
+def runner_without_codecs(sess, device, frames, dev_fps, card):
+    """The runner's proc path alone: RUNNER_TASKS midpoint tasks over
+    ``frames`` (in memory: decode and encode replaced by a dict), B=8, the
+    pinned side-stream path and the sync path (``process_batch``) in turns
+    (pinned, sync, sync, pinned); both must write the same bytes.  Prints
+    each run's frames/s beside the device-only figure."""
+    from rife_tpu_torch.io import runner as R
+
+    n = len(frames)
+    tasks = lambda: [R.Task(id=i, in0_path=str(i % (n - 1)),  # noqa: E731
+                            in1_path=str(i % (n - 1) + 1), out_path=str(i),
+                            timestep=0.5) for i in range(RUNNER_TASKS)]
+    real = R.decode_image, R.encode_image
+    outs = {}
+    try:
+        R.decode_image = lambda path: frames[int(path)]
+        for mode in ("pinned", "sync", "sync", "pinned"):
+            sink = {}
+            R.encode_image = sink.__setitem__
+            pinned = mode == "pinned"
+            runner = R.PipelineRunner(
+                [sess.process_batch], jobs_load=2, jobs_save=8,
+                batch_size=CLI_BATCH,
+                device_fns=[sess.process_batch_device] if pinned else None,
+                devices=[device])
+            t0 = time.perf_counter()
+            errors = runner.run(tasks())
+            dt = time.perf_counter() - t0
+            require(not errors and len(sink) == RUNNER_TASKS,
+                    f"runner without codecs ({mode}): {errors[:2]}")
+            outs.setdefault(mode, sink)
+            print(f"runner without codecs, {mode}: {RUNNER_TASKS} frames "
+                  f"{CLI_SIZE[0]}x{CLI_SIZE[1]} at B={CLI_BATCH} in {dt:.3f} "
+                  f"s, {RUNNER_TASKS / dt:.3f} frames/s (device-only "
+                  f"{dev_fps:.3f}); {runner.metrics.summary()}; card {card}",
+                  flush=True)
+    finally:
+        R.decode_image, R.encode_image = real
+    require(all(np.array_equal(outs["pinned"][k], outs["sync"][k])
+                for k in outs["sync"]),
+            "the runner's pinned path differs from its sync path")
+
+
+def phase_cli(device, v46_dir, v23_dir, rng, card):
+    """The CLI (``rife_tpu_torch.cli.main``, bf16 on cuda:0) through the
+    runner and the codecs: (a) directory mode, v4.6, CLI_FRAMES frames of
+    CLI_SIZE written as PNG by the port's encoder, -j 2:8:<cores, <= 16>:
+    every output decodes to the frame size, the copies equal their inputs
+    and the midpoints ``RIFE.process_batch`` on the same batches of 8 (the
+    tail padded) byte for byte, launches equal the plan times the batches;
+    wall frames/s beside the stage summary and the device-only frames/s of
+    the same step (``bench``); (b) pair mode, v2.3 at 1080p, equal to
+    ``RIFE.process`` byte for byte, launches as the plan says; (c) ``-g
+    0,0 -j 1:4,4:2`` over the first CLI_MULTI frames against one session
+    at ``-j 1:4:2``, byte for byte.  Returns {path: (launches, fps)}."""
+    import os
+    import shutil
+
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.io.image import codec_name, decode_image, encode_image
+    from rife_tpu_torch.models.v46_arch import LABEL
+
+    codec = codec_name()
+    cores = os.cpu_count()
+    print(f"cli: codec in use {codec}; os.cpu_count() {cores}", flush=True)
+    require(codec != "none", "no image codec on this host")
+    work = ROOT / "rife_tpu_torch" / "_build" / "cli"
+    shutil.rmtree(work, ignore_errors=True)
+    ind, outd = work / "in", work / "out"
+    ind.mkdir(parents=True)
+    outd.mkdir()
+    h, w = CLI_SIZE
+    frames = moving_frames(rng, CLI_FRAMES, h, w)
+    t0 = time.perf_counter()
+    for k, f in enumerate(frames):
+        encode_image(ind / f"{k:04d}.png", f)
+    print(f"cli: wrote {CLI_FRAMES} {h}x{w} PNGs in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    runs = {}
+
+    # (a) directory mode
+    jobs = f"2:{CLI_BATCH}:{min(cores, 16)}"
+    launches, dt, summary = run_cli(
+        ["-i", str(ind), "-o", str(outd), "-m", str(v46_dir), "-j", jobs],
+        "directory mode")
+    names = sorted(os.listdir(outd))
+    n_out = 2 * CLI_FRAMES
+    require(names == [f"{i:08d}.png" for i in range(1, n_out + 1)],
+            f"directory mode wrote {len(names)} files, expected {n_out}")
+    outs = [decode_image(outd / n) for n in names]
+    require(all(o.shape == (h, w, 3) and o.dtype == np.uint8 for o in outs),
+            "directory mode: an output of another shape")
+    copies = [(2 * k, k) for k in range(CLI_FRAMES)] + [(n_out - 1,
+                                                         CLI_FRAMES - 1)]
+    require(all(np.array_equal(outs[i], frames[k]) for i, k in copies),
+            "directory mode: a t=0/1 output differs from its input frame")
+    sess = RIFE(str(v46_dir), device=device)
+    mids = CLI_FRAMES - 1
+    n_batches = -(-mids // CLI_BATCH)
+    t_ref = time.perf_counter()
+    for j in range(n_batches):
+        idx = list(range(j * CLI_BATCH, min((j + 1) * CLI_BATCH, mids)))
+        pad = idx + [idx[-1]] * (CLI_BATCH - len(idx))
+        want = sess.process_batch(np.stack([frames[k] for k in pad]),
+                                  np.stack([frames[k + 1] for k in pad]),
+                                  np.full(CLI_BATCH, 0.5, np.float32))
+        for r, k in enumerate(idx):
+            require(np.array_equal(outs[2 * k + 1], want[r]),
+                    f"directory mode: midpoint {k} differs from "
+                    f"RIFE.process_batch")
+    print(f"cli (a): the {mids} midpoints equal RIFE.process_batch on the "
+          f"same {n_batches} batches of {CLI_BATCH} byte for byte (reference "
+          f"in {time.perf_counter() - t_ref:.2f} s)", flush=True)
+    per_step = kernel_sites(sess, h, w)
+    print(f"cli (a) launches {launches}; expected {n_batches} x {per_step}",
+          flush=True)
+    require(launches == {k: v * n_batches for k, v in per_step.items()},
+            "directory mode: launches differ from plan.kernel_sites")
+    _, _, _, dev_fps = bench(sess, device, f"{LABEL}, device-only, the CLI's "
+                             f"step", card, CLI_BATCH, CLI_SIZE)
+    wall_fps = n_out / dt
+    print(f"cli (a) directory mode {LABEL}, {CLI_FRAMES} frames {h}x{w} -> "
+          f"{n_out} outputs ({mids} interpolated), -j {jobs}: {dt:.3f} s "
+          f"wall, {wall_fps:.3f} output frames/s, {mids / dt:.3f} "
+          f"interpolated frames/s; device-only {dev_fps:.3f} frames/s at "
+          f"B={CLI_BATCH}; codec {codec}; {cores} cores; card {card}",
+          flush=True)
+    print(f"cli (a) stages: {summary}", flush=True)
+    runs["cli dir v4.6"] = (launches, mids / dt)
+    runner_without_codecs(sess, device, frames, dev_fps, card)
+    del sess
+    torch.cuda.empty_cache()
+
+    # (b) pair mode, v2.3 at 1080p
+    pair = work / "pair"
+    pair.mkdir()
+    f0, f1 = smooth_frames(rng, 1, BENCH[1], BENCH[2])
+    encode_image(pair / "a.png", f0[0])
+    encode_image(pair / "b.png", f1[0])
+    launches, dt, summary = run_cli(
+        ["-0", str(pair / "a.png"), "-1", str(pair / "b.png"), "-o",
+         str(pair / "out.png"), "-m", str(v23_dir)], "pair mode")
+    sess = RIFE(str(v23_dir), device=device)
+    want = sess.process(f0[0], f1[0])
+    require(np.array_equal(decode_image(pair / "out.png"), want),
+            "pair mode: the output differs from RIFE.process")
+    per_step = kernel_sites(sess, BENCH[1], BENCH[2])
+    print(f"cli (b) pair mode v2.3 {BENCH[1]}x{BENCH[2]}: equal to "
+          f"RIFE.process byte for byte; {dt:.3f} s wall; launches "
+          f"{launches}, plan {per_step}; stages: {summary}", flush=True)
+    require(launches == per_step and all(
+        per_step.get(k, 0) > 0 for k in ("warp_feat", "warp_u8", "warp_pair",
+                                         "warp_ds4_pair", "conv3x3")),
+        "pair mode: launches differ from plan.kernel_sites")
+    runs["cli pair v2.3"] = (launches, 1 / dt)
+    del sess
+    torch.cuda.empty_cache()
+
+    # (c) two sessions on one card over one queue against one session
+    few = work / "few"
+    few.mkdir()
+    for k in range(CLI_MULTI):
+        shutil.copy(ind / f"{k:04d}.png", few / f"{k:04d}.png")
+    got = {}
+    b = CLI_MULTI_BATCH
+    for tag, g, j in (("one", "0", f"1:{b}:2"), ("two", "0,0", f"1:{b},{b}:2")):
+        o = work / f"multi_{tag}"
+        o.mkdir()
+        launches, dt, summary = run_cli(
+            ["-i", str(few), "-o", str(o), "-m", str(v46_dir), "-g", g,
+             "-j", j], f"-g {g}")
+        got[tag] = {n: decode_image(o / n) for n in sorted(os.listdir(o))}
+        print(f"cli (c) -g {g} -j {j}: {len(got[tag])} outputs in {dt:.3f} "
+              f"s; launches {launches}; stages: {summary}", flush=True)
+    require(len(got["one"]) == 2 * CLI_MULTI
+            and got["one"].keys() == got["two"].keys()
+            and all(np.array_equal(got["one"][n], got["two"][n])
+                    for n in got["one"]),
+            "two sessions on one queue differ from one session")
+    runs["cli -g 0,0"] = (launches, (CLI_MULTI - 1) / dt)
+    print("cli (c): two sessions equal one byte for byte", flush=True)
+    # why a partial batch is padded to the batch size: a frame's bytes
+    # depend on the B of its step
+    sess = RIFE(str(v46_dir), device=device)
+    a = np.stack(frames[:CLI_BATCH])
+    c = np.stack(frames[1:CLI_BATCH + 1])
+    full = sess.process_batch(a, c, np.full(CLI_BATCH, 0.5, np.float32))
+    for n in (1, b - 1, b, CLI_BATCH - 1):
+        part = sess.process_batch(a[:n], c[:n], np.full(n, 0.5, np.float32))
+        d = np.abs(full[:n].astype(np.int16) - part)
+        print(f"cli: v4.6 bf16 {h}x{w}, the first {n} rows of a B={n} step "
+              f"against a B={CLI_BATCH} step: max |d| {int(d.max())}, exact "
+              f"{float((d == 0).mean()):.6f}", flush=True)
+    del sess
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one "
@@ -924,6 +1182,7 @@ def main() -> int:
     runs["v2.3 -u"] = phase_uhd(device, v23_dir, rng, card)
     print(f"v2.3 bf16 4K -u B={UHD_BENCH[0]}: {runs['v2.3 -u'][1]:.3f} "
           f"frames/s; card {card}", flush=True)
+    runs.update(phase_cli(device, v46_dir, v23_dir, rng, card))
     by_path = {path: launches for path, (launches, _) in runs.items()}
 
     kernels = []

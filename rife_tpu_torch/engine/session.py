@@ -172,10 +172,16 @@ class RIFE:
         modes = {"tta": self.tta_mode, "temporal": self.tta_temporal_mode}
         with torch.inference_mode():
             if self.model.family == "v4":
+                t = torch.from_numpy(ts)
+                if self.device.type == "cuda":
+                    # from pageable memory the copy would wait for the
+                    # stream's earlier work; pinned, the step is queued
+                    # behind the batch still running
+                    t = t.pin_memory()
                 return pipelines.forward_v4(
                     self.executor, self.weights["flownet"], a, b,
-                    torch.from_numpy(ts).to(self.device), pad_to(h), pad_to(w),
-                    self.dtype, **modes)
+                    t.to(self.device, non_blocking=True), pad_to(h),
+                    pad_to(w), self.dtype, **modes)
             return pipelines.forward_v2(self.executors, self.weights, a, b,
                                         pad_to(h), pad_to(w), self.dtype,
                                         uhd=self.uhd_mode, **modes)

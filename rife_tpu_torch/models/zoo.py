@@ -51,6 +51,10 @@ class LoadedModel:
     family: str  # v1 | v2 | v4
     nets: Dict[str, LoadedNet] = field(default_factory=dict)
 
+    @property
+    def any_synthetic(self) -> bool:
+        return any(n.synthetic for n in self.nets.values())
+
 
 def resolve_model_dir(model: str, root: Optional[Path] = None) -> Path:
     """Use ``model`` as a path if it exists, else look it up under the zoo

@@ -14,6 +14,8 @@ for the slices, u8 max |d| <= 1 and exact on >= 99.9% of pixels (cuDNN sums
 in another order than the CPU).
 """
 
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -632,3 +634,68 @@ def test_tta_fused_f32_matches_cpu(cuda_device, model_dir, v23_dir, model,
     assert counts == kernel_sites(sess, 50, 70) and counts["warp_ds2"] == 8
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+def test_runner_pinned_path_matches_sync_path(cuda_device, model_dir,
+                                              tmp_path, monkeypatch):
+    """The runner's CUDA path (pinned slots, upload on the compute stream,
+    download on a side stream, two batches in flight per session) writes
+    the same bytes as its sync path (``process_batch``), with two bf16
+    sessions on one queue over several batches each.  Every slot is
+    poisoned as it is released, so a row read after its release, or a slot
+    refilled before its download completed, would show in the outputs or
+    as a stage error."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.io import runner as R
+    from rife_tpu_torch.io.image import decode_image, encode_image
+
+    rng = np.random.default_rng(8)
+    ind = tmp_path / "in"
+    ind.mkdir()
+    paths = []
+    for i in range(13):
+        paths.append(str(ind / f"{i:03d}.png"))
+        encode_image(paths[-1], rng.integers(0, 256, (64, 96, 3), np.uint8))
+    sessions = [RIFE(str(model_dir), device=cuda_device) for _ in range(2)]
+    assert all(s.dtype == torch.bfloat16 for s in sessions)
+
+    launched, poisoned = [], []
+    real_launch, real_release = R._CudaStaging.launch, R._CudaStaging.release
+
+    def launch(self, slot, ts):
+        assert slot.in0.is_pinned() and slot.out.is_pinned()
+        launched.append(slot.in0.shape[0])
+        real_launch(self, slot, ts)
+
+    def release(self, slot):
+        for t in (slot.in0, slot.in1, slot.out):
+            t.numpy().fill(0xAB)  # the slots are inference tensors
+        poisoned.append(slot)
+        real_release(self, slot)
+
+    monkeypatch.setattr(R._CudaStaging, "launch", launch)
+    monkeypatch.setattr(R._CudaStaging, "release", release)
+    outs = {}
+    for tag, pinned in (("sync", False), ("pinned", True)):
+        outd = tmp_path / tag
+        outd.mkdir()
+        tasks = [R.Task(id=i, in0_path=paths[i], in1_path=paths[i + 1],
+                        out_path=str(outd / f"{i:03d}.png"),
+                        timestep=(0.5, 0.25, 0.7)[i % 3])
+                 for i in range(len(paths) - 1)]
+        runner = R.PipelineRunner(
+            [s.process_batch for s in sessions], batch_size=[3, 3],
+            jobs_load=2, jobs_save=2,
+            device_fns=([s.process_batch_device for s in sessions]
+                        if pinned else None),
+            devices=[s.device for s in sessions])
+        assert runner.run(tasks) == []
+        outs[tag] = {n: decode_image(outd / n)
+                     for n in sorted(os.listdir(outd))}
+    assert len(outs["sync"]) == 12 and outs["sync"].keys() == outs[
+        "pinned"].keys()
+    for name in outs["sync"]:
+        np.testing.assert_array_equal(outs["pinned"][name], outs["sync"][name])
+    # every step ran at its session's B; every slot was released once
+    assert launched and set(launched) == {3}
+    assert len(poisoned) == len(launched)
