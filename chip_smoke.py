@@ -3,11 +3,13 @@
 
 Drives ``rife_tpu_torch`` on one card, through the entry points a user calls
 (``RIFE(...).process_batch`` / ``process_batch_device``, and the CLI
-``rife_tpu_torch.cli.main``), on seven session paths at full width: the
+``rife_tpu_torch.cli.main``), on ten session paths at full width: the
 v4.6-architecture graph and the v2.3-architecture graphs (in-repo
 reconstructions, synthetic weights), each plain, with ``fuse_ds2`` and with
-``-x -z`` TTA plus ``fuse_ds2``, and v2.3 with UHD ``-u`` at 4K; then three
-CLI paths through the load -> proc -> save runner and the image codecs:
+``-x -z`` TTA plus ``fuse_ds2``, v2.3 with UHD ``-u`` at 4K, and the
+v1-architecture ``rife`` graphs plain, with ``-x -z`` and with ``-u``; then
+three CLI paths through the load -> proc -> save runner and the image
+codecs:
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
@@ -31,7 +33,12 @@ CLI paths through the load -> proc -> save runner and the image codecs:
    through ``deconv4x4``, whose bf16 launch writes the interleaved phases),
    per site with cuDNN's bf16 time on the same call (``conv_transpose2d``
    at a deconv site), the site's bound and the kernel's share of it, and
-   each summed over the step.  Every timed kernel is printed beside its
+   each summed over the step; ``conv3x3_ps`` (B4) at the v1 fusionnet's
+   head site of a 1080p B=8 step and at a DeconvPS site of the v4.6 block
+   tail's shape, bit for bit against the plain kernel's output shuffled
+   and against its twin, timed beside the unfused kernel +
+   ``pixel_shuffle`` and cuDNN + ``pixel_shuffle``.  Every timed kernel is
+   printed beside its
    bound (bytes once over 3.35 TB/s, or bf16 FLOP over 989 TFLOP/s) and,
    for ``warp_feat``, ``grid_sample`` on a prebuilt grid.  Bars: warps f32
    max |d| <= 2e-6, conv3x3 f32 max |d| <= 1e-5 of the largest output;
@@ -61,7 +68,15 @@ CLI paths through the load -> proc -> save runner and the image codecs:
    on ``conv3x3``); then bf16 4K (2160x3840) B=2 frames/s, launches equal to
    ``plan.kernel_sites`` (no u8-origin launch from the flownet), and the PSNR
    of its first item against f32 on the CPU;
-9. runs the CLI in this process (bf16 on cuda:0): (a) directory mode, v4.6,
+9. runs v1 ``rife``: f32 on the card against the CPU on the first pair of
+   the 1080p bench frames (launches equal to the plan, ``conv3x3_ps``
+   among them), bf16 1080p B=8 frames/s with the plan's launches and the
+   PSNR of its first item against that f32 CPU frame (>= 30 dB, or within
+   3 dB of the CPU's own bf16 session: bf16 costs this synthetic network
+   that much on the CPU too), the flow statistics
+   of the reconstruction; then ``-x -z`` at 256x448 and ``-u`` at 576x1024,
+   f32 on the card against the CPU with the plan's launches;
+10. runs the CLI in this process (bf16 on cuda:0): (a) directory mode, v4.6,
    32 smooth 1280x720 frames written as PNG by the port's encoder, ``-j
    2:8:<cores, at most 16>``: 64 outputs of the frame size, the t=0/1
    copies equal to their inputs and the 31 midpoints equal to
@@ -75,7 +90,7 @@ CLI paths through the load -> proc -> save runner and the image codecs:
    ``-g 0,0 -j 1:4,4:2`` over the first 8 frames, byte for byte equal to
    one session at ``-j 1:4:2``; and the rows of B=1, 3, 4 and 7 steps
    against the same rows of a B=8 step (why the runner pads);
-10. prints the kernels' JSON line (launches of each path's counted run), the
+11. prints the kernels' JSON line (launches of each path's counted run), the
    nvidia-smi line and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
@@ -104,6 +119,13 @@ DS2_SHAPES = [STEP_SHAPE, MAIN_SHAPE, (2, 1920, 1088), ODD_SHAPE]
 DS2_EDGE = [(1, 1088, 1920), (1, 54, 198), (1, 2, 2)]
 V46_CHECK = (1, 256, 448)
 V23_CHECK = (2, 544, 960)
+# v1: the fusionnet's head conv (B4) takes the half-resolution decoder
+# output, which the planar gate admits from 1080p on
+V1_CHECK = (1, 1080, 1920)
+# the card's bf16 and the CPU's (oneDNN's convs) sum in other orders, and
+# the v1 reconstruction's SE gates amplify such differences: the card's
+# bf16 may lie a few dB further from f32 than the CPU's (PERF.md §6)
+V1_BF16_SLACK_DB = 3.0
 TTA_CHECK = (1, 256, 448)
 # -u: the flownet halves the padded frames and reaches 1/32 of them, so the
 # padded sides are multiples of 64; 576x1024 is large enough for the gates
@@ -140,7 +162,12 @@ KERNELS = {
     "warp_ds2": ("warp.cu", f"{WARP_SRC}:2052", [f"{WARP_SRC}:1899"]),
     "conv3x3": ("conv.cu", f"{CONV_SRC}:309",
                 [f"{CONV_SRC}:485", f"{CONV_SRC}:97", f"{CONV_SRC}:190"]),
+    "conv3x3_ps": ("conv.cu", f"{CONV_SRC}:756", [f"{CONV_SRC}:784"]),
 }
+# a DeconvPS site of the v4.6 block tail's shape (deconv 64 -> 24, then
+# PixelShuffle 2) at the 1/4 grid of a 1080p B=8 step: no ported graph
+# gates one (the v4 nets run on cuDNN), B4's deconv form is timed here
+DECONV_PS_SITE = (1, (64,), 4 * 24, 1, 0, 272, 480, True)
 PAIR_KERNELS = {  # name: (wrapper, twin)
     "warp_ds4_pair": ("warp_ds4_pair", "warp_ds4_pair_ref"),
     "warp_pair": ("warp_pair", "warp_pair_ref"),
@@ -606,6 +633,96 @@ def phase_conv(device, rng, report, sites):
     torch.cuda.empty_cache()
 
 
+def phase_conv_ps(device, rng, report, sites):
+    """B4, ``conv3x3_ps``: at each gated ``rife.ConvPS`` site of a v1 1080p
+    B=8 step (the fusionnet's head; tallied in the report) and at
+    DECONV_PS_SITE (``deconv4x4(..., ps=2)``, timed, not tallied), random
+    weights, bf16 and f32: (1) bit for bit against the plain kernel's
+    output shuffled by ``F.pixel_shuffle`` (the same sums, only the write
+    addresses moved), (2) against its twin at the conv bar.  bf16 per site:
+    kernel, twin, the unfused kernel + ``F.pixel_shuffle``, cuDNN's bf16
+    conv (``conv_transpose2d``) + ``F.pixel_shuffle`` and the bound."""
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    for dtype in (torch.bfloat16, torch.float32):
+        timed = dtype == torch.bfloat16
+        for i, site in enumerate(sites + [DECONV_PS_SITE]):
+            factor, parts, cout, stride, act, h, w, deconv = site
+            b = factor * BENCH[0]
+            cin = sum(parts)
+            x = torch.randn(b, cin, h, w, device=device).to(dtype)
+            bias = torch.randn(cout, device=device) * 0.1
+            slope = torch.rand(cout, device=device) * 0.3
+            if deconv:
+                raw = (torch.randn(cin, cout // 4, 4, 4, device=device)
+                       * (1.0 / (2.0 * cin ** 0.5))).to(dtype)
+                weight = CV.deconv_phase_weights(raw).contiguous()
+                packed = CV.pack_weight_tc(weight)
+
+                def kfn(x, wt, bi, sl, ps=2):
+                    return CV.deconv4x4(x, wt, bi, sl, act=act, ps=ps,
+                                        phase_weight_tc=packed)
+
+                def tfn(x, wt, bi, sl):
+                    return CV.deconv4x4_ref(x, wt, bi, sl, act=act, ps=2)
+                scale = CV.deconv4x4_ref(x.float().abs(),
+                                         weight.float().abs(), ps=2)
+
+                def library():
+                    return F.pixel_shuffle(F.conv_transpose2d(
+                        x, raw, None, stride=2, padding=1), 2)
+            else:
+                weight = (torch.randn(cout, cin, 3, 3, device=device)
+                          * (1.0 / (3.0 * cin ** 0.5))).to(dtype)
+                packed = CV.pack_weight_tc(weight)
+
+                def kfn(x, wt, bi, sl, ps=2):
+                    return CV.conv3x3([x], wt, bi, sl, stride=stride,
+                                      act=act, weight_tc=packed, ps=ps)
+
+                def tfn(x, wt, bi, sl):
+                    return CV.conv3x3_ref([x], wt, bi, sl, stride=stride,
+                                          act=act, ps=2)
+                scale = CV.conv3x3_ref([x.float().abs()],
+                                       weight.float().abs(), stride=stride,
+                                       ps=2)
+
+                def library():
+                    return F.pixel_shuffle(F.conv2d(
+                        x, weight, None, stride=stride, padding=1), 2)
+            args = (x, weight, bias, slope)
+            fused = kfn(*args)
+            unfused = F.pixel_shuffle(kfn(*args, ps=1), 2)
+            torch.cuda.synchronize()
+            require(torch.equal(fused, unfused),
+                    f"conv3x3_ps site {i}: not bit for bit with the plain "
+                    f"kernel shuffled")
+            tally = timed and site in sites
+            bound = conv_site_bound(b, parts, cout, stride, h, w, deconv)
+            label = (f"site {i}: B={b} cin={cin} cout={cout} (x{cout // 4} "
+                     f"after the shuffle) s{stride} act{act} {h}x{w}"
+                     f"{' deconv' if deconv else ''}")
+            ms, lib = check_pair(
+                report, "conv3x3_ps", kfn, tfn, args, dtype, label, timed,
+                f32_rel=1e-5, iters=10, tally=tally,
+                bound=bound if timed else None,
+                library=library if timed else None, scale=scale)
+            if timed:
+                plain = time_ms(lambda: F.pixel_shuffle(kfn(*args, ps=1), 2),
+                                10)
+                report["conv3x3_ps"].setdefault("unfused_ms", 0.0)
+                if tally:
+                    report["conv3x3_ps"]["unfused_ms"] += plain
+                print(f"  conv3x3_ps {label}: kernel {ms:.4f} ms, unfused "
+                      f"kernel + pixel_shuffle {plain:.4f} ms, cuDNN bf16 + "
+                      f"pixel_shuffle {lib:.4f} ms, bound {bound[0]:.4f} ms "
+                      f"({bound[1]}), kernel at "
+                      f"{100 * bound[0] / ms:.1f}% of its bound", flush=True)
+            del x, weight, scale, fused, unfused
+    torch.cuda.empty_cache()
+
+
 def assert_u8_close(got, want, what):
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     exact = float((diff == 0).mean())
@@ -875,6 +992,84 @@ def phase_uhd(device, model_dir, rng, card):
     return launches, fps
 
 
+def phase_v1(device, model_dir, card):
+    """v1 ``rife`` plain: (a) f32 on the card against f32 on the CPU on the
+    first frame pair of the bench (V1_CHECK, 1080p: the size from which the
+    fusionnet's head takes B4), launches equal to ``plan.kernel_sites``,
+    ``conv3x3_ps`` among them; (b) bf16 1080p B=8 frames/s, launches per
+    step equal to the plan, PSNR of the first item against (a)'s CPU f32,
+    at least 30 dB or within V1_BF16_SLACK_DB of the PSNR of the CPU's
+    bf16 session on the same item;
+    (c) the reconstruction's flow statistics at 1080p (bf16 flownet on the
+    bench frames, synthetic weights at the copied scales of ``rife``)."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.engine.session import pad_to
+    from rife_tpu_torch.models.v1_arch import LABEL
+    from rife_tpu_torch.ops import frame
+
+    b, h, w = BENCH
+    # bench()'s frames: the f32 check runs on its first pair
+    f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
+    one = np.full(V1_CHECK[0], 0.5, np.float32)
+    t0 = time.perf_counter()
+    want = RIFE(str(model_dir), device="cpu").process_batch(f0[:1], f1[:1],
+                                                            one)
+    print(f"v1: CPU reference 1x{h}x{w} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    card32 = RIFE(str(model_dir), device=device, dtype=torch.float32)
+    reset_counts()
+    got = card32.process_batch(f0[:1], f1[:1], one)
+    launches = read_counts()
+    expected = kernel_sites(card32, h, w)
+    print(f"v1 f32 {h}x{w} launches {launches}, expected {expected}",
+          flush=True)
+    require(launches == expected and launches.get("conv3x3_ps", 0) > 0,
+            "v1 f32 check: launches differ from the plan, or no conv3x3_ps")
+    assert_u8_close(got, want, f"v1 rife f32 cuda vs cpu {h}x{w}")
+    del card32
+    torch.cuda.empty_cache()
+
+    sess = RIFE(str(model_dir), device=device)
+    launches, res, _, fps = bench(sess, device, f"{LABEL}, rife plain", card)
+    per_step = kernel_sites(sess, h, w)
+    print(f"v1 launches over {BENCH_STEPS} steps: {launches}; expected per "
+          f"step: {per_step}", flush=True)
+    require(launches == {k: v * BENCH_STEPS for k, v in per_step.items()}
+            and per_step.get("conv3x3_ps") == 1,
+            "v1 launch counts differ from plan.kernel_sites")
+    # bf16 itself moves this synthetic network far from f32 (its 26 SE gates
+    # amplify rounding: PERF.md §6), so the card's bf16 is held to the
+    # CPU's bf16 (rife_tpu's bf16 semantics, bit for bit at mini widths on
+    # the CPU): no more than V1_BF16_SLACK_DB further from f32
+    t0 = time.perf_counter()
+    cpu16 = RIFE(str(model_dir), device="cpu",
+                 dtype=torch.bfloat16).process_batch(f0[:1], f1[:1], one)
+    p, p_cpu = psnr(res[:1], want), psnr(cpu16, want)
+    print(f"v1 rife bf16 {h}x{w} (first item of the B={b} step) against f32 "
+          f"on the CPU: cuda PSNR {p:.2f} dB, the CPU's bf16 {p_cpu:.2f} dB; "
+          f"cuda bf16 against the CPU's bf16 {psnr(res[:1], cpu16):.2f} dB "
+          f"(CPU bf16 in {time.perf_counter() - t0:.1f} s); card {card}",
+          flush=True)
+    require(p >= min(30.0, p_cpu - V1_BF16_SLACK_DB),
+            f"bf16 v1 PSNR {p:.2f} dB: below 30 dB and more than "
+            f"{V1_BF16_SLACK_DB} dB below the CPU's bf16 ({p_cpu:.2f} dB)")
+    with torch.inference_mode():
+        ins = [frame.preprocess(torch.from_numpy(f).to(device), pad_to(h),
+                                pad_to(w), sess.dtype) for f in (f0, f1)]
+        flow = sess.executors["flownet"].run(
+            {"input0": ins[0], "input1": ins[1]}, ["flow"],
+            {"w": sess.weights["flownet"]})[0].float().abs()
+    require(bool(torch.isfinite(flow).all()), "v1 flow not finite")
+    print(f"v1 rife flow at {h}x{w} (B={b}, bf16, {tuple(flow.shape)} at "
+          f"half resolution, synthetic weights at the calibrated scales of "
+          f"'rife'): mean |flow| {float(flow.mean()):.4f} px, max |flow| "
+          f"{float(flow.max()):.4f} px", flush=True)
+    del sess, flow, ins
+    torch.cuda.empty_cache()
+    return launches, fps
+
+
 def moving_frames(rng, n, h, w, step=2):
     """n u8 frames (h,w,3) of one smooth scene panning ``step`` px a frame."""
     base = smooth_field(rng, 1, h + 16, w + 16 + step * n, 3)[0] * 60 + 128
@@ -1116,6 +1311,7 @@ def main() -> int:
     from rife_tpu_torch import RIFE
     from rife_tpu_torch.engine.plan import conv_sites
     from rife_tpu_torch.models import v23_arch, v46_arch
+    from rife_tpu_torch.models.v1_arch import write_v1_params
     from rife_tpu_torch.models.v23_arch import write_v23_params
     from rife_tpu_torch.models.v46_arch import write_flownet_param
     from rife_tpu_torch.native import build
@@ -1161,6 +1357,13 @@ def main() -> int:
     phase_single_warp(device, rng, report)
     phase_uhd_warps(device, rng, report)
     phase_conv(device, rng, report, sites)
+    v1_dir = write_v1_params(models)
+    ps_sites = conv_sites(RIFE(str(v1_dir), device="cpu"), BENCH[1],
+                          BENCH[2], "conv3x3_ps")
+    print(f"v1 conv3x3_ps sites at {BENCH[1]}x{BENCH[2]}: {ps_sites}",
+          flush=True)
+    require(ps_sites, "no conv3x3_ps site in the v1 step")
+    phase_conv_ps(device, rng, report, ps_sites)
     runs = {"v4.6": phase_v46(device, v46_dir, rng, card),
             "v2.3": phase_v23(device, v23_dir, rng, card, v23)}
     del v23
@@ -1182,6 +1385,14 @@ def main() -> int:
     runs["v2.3 -u"] = phase_uhd(device, v23_dir, rng, card)
     print(f"v2.3 bf16 4K -u B={UHD_BENCH[0]}: {runs['v2.3 -u'][1]:.3f} "
           f"frames/s; card {card}", flush=True)
+    runs["v1"] = phase_v1(device, v1_dir, card)
+    print(f"v1 rife bf16 1080p B={BENCH[0]}: {runs['v1'][1]:.3f} frames/s; "
+          f"card {card}", flush=True)
+    runs["v1 -x -z"] = (check_on_card("v1 -x -z", v1_dir, device, rng,
+                                      TTA_CHECK, tta_mode=True,
+                                      tta_temporal_mode=True), None)
+    runs["v1 -u"] = (check_on_card("v1 -u", v1_dir, device, rng, UHD_CHECK,
+                                   uhd_mode=True), None)
     runs.update(phase_cli(device, v46_dir, v23_dir, rng, card))
     by_path = {path: launches for path, (launches, _) in runs.items()}
 

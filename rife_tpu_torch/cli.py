@@ -282,14 +282,10 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     # the session's default dtype: bf16 on the card, f32 on the CPU
     t0 = time.perf_counter()
-    try:
-        sessions = [RIFE(args.model, device=device, tta_mode=args.tta_mode,
-                         tta_temporal_mode=args.tta_temporal,
-                         uhd_mode=args.uhd_mode)
-                    for device in devices]
-    except NotImplementedError as e:
-        print(e, file=sys.stderr)
-        return 255
+    sessions = [RIFE(args.model, device=device, tta_mode=args.tta_mode,
+                     tta_temporal_mode=args.tta_temporal,
+                     uhd_mode=args.uhd_mode)
+                for device in devices]
     if args.verbose:
         print(f"sessions: {len(sessions)} built in "
               f"{time.perf_counter() - t0:.2f}s")

@@ -1,6 +1,6 @@
 """Forward pipelines (port of ``rife_tpu/engine/pipelines.py``: ``forward_v4``
-and the v2 path of ``forward_v1v2``, plain and with the ``-x``/``-z`` TTA
-modes and UHD ``-u``; the v1 family is not ported).
+and ``forward_v1v2``, plain and with the ``-x``/``-z`` TTA modes and UHD
+``-u``).
 
 Spatial TTA (``-x``) runs the 8 dihedral views as two batch groups of 4B,
 canonical (H,W) and transposed (W,H) (``frame.expand_views8``); temporal TTA
@@ -123,27 +123,37 @@ def forward_v4(ex, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# v2
+# v1 / v2
 # ---------------------------------------------------------------------------
 
-def _v2_render(run, img0, img1, flow, flow_rev):
-    """Contextnet + fusionnet on one geometry (``_v1v2_render``): both
+def _v1v2_render(run, family, img0, img1, flow, flow_rev):
+    """Contextnet + fusionnet on one geometry (``_v1v2_render``).  v2: both
     context extractions ride one batched contextnet run over
-    ``cat([img0, img1])`` (same input slot ``flow.0``, same subgraph); the
-    fusionnet takes the frames, the flow and the features as inputs
-    ``"3".."10"`` (frame 0's f1..f4, then frame 1's).  With a reverse flow
-    (``-z``) the fusionnet also runs on the swapped pair and the two renders
-    are averaged."""
-    b = img0.shape[0]
-    feats = run("contextnet", {
-        "input.1": torch.cat([img0, img1]),
-        "flow.0": torch.cat([flow[:, 0:2], flow[:, 2:4]]),
-    }, list(CONTEXT_FEATS))
-    ctx0, ctx1 = [f[:b] for f in feats], [f[b:] for f in feats]
+    ``cat([img0, img1])`` (same input slot ``flow.0``, the flow's halves).
+    v1: two runs, frame 0 feeding the whole flow as ``flow.0`` and frame 1
+    as ``flow.1`` (which the graph negates); they take different input
+    slots, and a frame's bf16 bytes depend on the B of its run, so they
+    are not batched.  The fusionnet takes the frames, the flow and the
+    features as inputs ``"3".."10"`` (frame 0's f1..f4, then frame 1's).
+    With a reverse flow (``-z``) the fusionnet also runs on the swapped pair
+    and the two renders are averaged."""
+    feat_names = list(CONTEXT_FEATS)
+    if family == "v2":
+        b = img0.shape[0]
+        feats = run("contextnet", {
+            "input.1": torch.cat([img0, img1]),
+            "flow.0": torch.cat([flow[:, 0:2], flow[:, 2:4]]),
+        }, feat_names)
+        ctx0, ctx1 = [f[:b] for f in feats], [f[b:] for f in feats]
+    else:
+        ctx0 = run("contextnet", {"input.1": img0, "flow.0": flow},
+                   feat_names)
+        ctx1 = run("contextnet", {"input.1": img1, "flow.1": flow},
+                   feat_names)
 
     def fusion(i0, i1, fl, c0, c1):
         inputs = {"img0": i0, "img1": i1, "flow": fl}
-        for i, f in enumerate(c0 + c1):
+        for i, f in enumerate(list(c0) + list(c1)):
             inputs[str(3 + i)] = f
         return run("fusionnet", inputs, ["output"])[0]
 
@@ -154,23 +164,27 @@ def _v2_render(run, img0, img1, flow, flow_rev):
     return out
 
 
-def forward_v2(nets, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
-               pad_h: int, pad_w: int, dtype: torch.dtype, tta: bool = False,
-               temporal: bool = False, uhd: bool = False) -> torch.Tensor:
-    """u8 frames (B,H,W,3) -> the u8 midpoint frame (B,H,W,3), v2 family.
+def forward_v1v2(nets, weights, family: str, in0_u8: torch.Tensor,
+                 in1_u8: torch.Tensor, pad_h: int, pad_w: int,
+                 dtype: torch.dtype, tta: bool = False,
+                 temporal: bool = False, uhd: bool = False) -> torch.Tensor:
+    """u8 frames (B,H,W,3) -> the u8 midpoint frame (B,H,W,3), v1 or v2
+    family (``family``).
 
-    ``flownet`` gives the flow at half resolution (B,4,H/2,W/2); with
-    ``-z`` it also runs on the swapped pair and ``flow_temporal_avg_v2``
-    merges the two; with ``-x`` each view group runs as a batch of 4B
-    (contextnet 8B) and ``flow_views_avg`` merges the 8 views' flows before
-    the render.  With ``-u`` every flownet run takes the frames halved by
-    ``resize2d`` and its ctx sets ``no_u8_warp`` (the resized frames are not
-    u8-valued); its flow is resized x2 and then scaled by 2 in its own dtype
-    (``_run_flownet``).  The contextnet and fusionnet run as without ``-u``."""
+    ``flownet`` gives the flow at half resolution, (B,4,H/2,W/2) for v2 and
+    (B,2,H/2,W/2) for v1; with ``-z`` it also runs on the swapped pair and
+    ``flow_temporal_avg_v2`` / ``_v1`` merges the two; with ``-x`` each view
+    group runs as a batch of 4B and ``flow_views_avg`` (2 flow pairs for v2,
+    1 for v1) merges the 8 views' flows before the render.  With ``-u``
+    every flownet run takes the frames halved by ``resize2d`` and its ctx
+    sets ``no_u8_warp`` (the resized frames are not u8-valued); its flow is
+    resized x2 and then scaled by 2 in its own dtype (``_run_flownet``).
+    The contextnet and fusionnet run as without ``-u``."""
     h, w = in0_u8.shape[1], in0_u8.shape[2]
     b = in0_u8.shape[0]
     img0 = frame.preprocess(in0_u8, pad_h, pad_w, dtype)
     img1 = frame.preprocess(in1_u8, pad_h, pad_w, dtype)
+    v2 = family == "v2"
 
     def run(net, inputs, outputs, **ctx):
         return nets[net].run(inputs, outputs, {"w": weights[net], **ctx})
@@ -185,14 +199,16 @@ def forward_v2(nets, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
         flow = resize2d(flow, flow.shape[2] * 2, flow.shape[3] * 2)
         return flow * torch.tensor(2.0, dtype=flow.dtype, device=flow.device)
 
+    merge = frame.flow_temporal_avg_v2 if v2 else frame.flow_temporal_avg_v1
+
     def flows(i0, i1):
         flow = flownet(i0, i1)
         if not temporal:
             return flow, None
-        return frame.flow_temporal_avg_v2(flow, flownet(i1, i0))
+        return merge(flow, flownet(i1, i0))
 
     if not tta:
-        out = _v2_render(run, img0, img1, *flows(img0, img1))
+        out = _v1v2_render(run, family, img0, img1, *flows(img0, img1))
         return frame.postprocess(out, h, w)
 
     g0a, g0b = (_flatten(g) for g in frame.expand_views8(img0))
@@ -203,12 +219,12 @@ def forward_v2(nets, weights, in0_u8: torch.Tensor, in1_u8: torch.Tensor,
     def views_avg(k):
         """Consensus of flow k (0 forward, 1 reverse) over both groups."""
         fa, fb = frame.flow_views_avg(
-            *(_unflatten(f[k], b) for f in per_group), n_pairs=2,
-            has_mask=False)
+            *(_unflatten(f[k], b) for f in per_group),
+            n_pairs=2 if v2 else 1, has_mask=False)
         return _flatten(fa), _flatten(fb)
 
     fwd = views_avg(0)
     rev = views_avg(1) if temporal else (None, None)
-    outs = [_unflatten(_v2_render(run, i0, i1, f, fr), b)
+    outs = [_unflatten(_v1v2_render(run, family, i0, i1, f, fr), b)
             for (i0, i1), f, fr in zip(groups, fwd, rev)]
     return frame.postprocess(frame.merge_views8_mean(*outs), h, w)

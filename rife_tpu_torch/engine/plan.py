@@ -8,11 +8,13 @@ every layer kind the port runs, and applies the dispatch rules of
 ``ops/torch_ops.py``: the pair kernels for paired u8-origin warps, K3 for a
 ``rife.WarpDs2`` of a frame copy, the single-warp kernel in its u8 or float
 mode for the rest (float only in a run whose ctx sets ``no_u8_warp``: the UHD
-flownet, walked at its halved geometry), and ``conv3x3`` where the gates of
-``ops/conv.py`` take a conv site.  The result, launches per kernel per step,
-does not depend on the batch size.  ``chip_smoke.py`` holds the card's
-launch counters to it, and times ``conv3x3`` at each site ``conv_sites``
-lists.
+flownet, walked at its halved geometry), ``conv3x3`` where the gates of
+``ops/conv.py`` take a conv site, and ``conv3x3_ps`` where they take a
+``rife.ConvPS`` / ``rife.DeconvPS`` site (on its pre-shuffle channels).
+Rank-2 blobs (the v1 SE gates: global ``Pooling``, ``InnerProduct``) have
+shape (C,).  The result, launches per kernel per step, does not depend on
+the batch size.  ``chip_smoke.py`` holds the card's launch counters to it,
+and times ``conv3x3`` / ``conv3x3_ps`` at each site ``conv_sites`` lists.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from ..ops import conv as CV
 from .pipelines import CONTEXT_FEATS, V4_TAPS
 from .session import pad_to
 
-Shape = Tuple[int, int, int]  # (C, H, W) of one batch item
+Shape = Tuple[int, ...]  # (C, H, W) of one batch item, (C,) for a vector
 
 
 def _conv_out(node, h, w, transposed: bool):
@@ -46,11 +48,12 @@ def _cut(shape: Shape, axis: int, start: int, end: int) -> Shape:
 
 
 def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
-    """(kernel launches, blob shapes, conv3x3 sites) of one run of ``ex``
-    with ``run_ctx`` over its ctx, as ``Executor.run`` merges them; a site
-    is the kernel call's (part channels, cout, stride, activation code,
-    input H, W, deconv); a deconv site's cout counts its four output
-    phases."""
+    """(kernel launches, blob shapes, conv sites) of one run of ``ex`` with
+    ``run_ctx`` over its ctx, as ``Executor.run`` merges them; a conv site
+    is (kernel, site), the site the kernel call's (part channels, cout,
+    stride, activation code, input H, W, deconv): a deconv site's cout
+    counts its four output phases, a PixelShuffle site's the channels
+    before the shuffle."""
     g, ctx = ex.graph, {**ex.ctx, **(run_ctx or {})}
     u8 = () if ctx.get("no_u8_warp") else ctx.get("u8_image_blobs", ())
     planar = ctx.get("planar_convs", False)
@@ -73,7 +76,7 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
         ins = [shapes[b] for b in node.bottoms]
         x = ins[0]
         kind = node.type
-        if kind in ("Convolution", "ConvolutionCat"):
+        if kind in ("Convolution", "ConvolutionCat", "rife.ConvPS"):
             cin = sum(s[0] for s in ins)
             cout = int(node.p(0))
             _, _, _, stride, _, _ = C.conv_hyperparams(node)
@@ -81,22 +84,31 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
             parts = [s[0] for s in ins]
             if len(parts) > CV.MAX_PARTS:
                 parts[CV.MAX_PARTS - 1:] = [sum(parts[CV.MAX_PARTS - 1:])]
+            name = "conv3x3_ps" if kind == "rife.ConvPS" else "conv3x3"
             if planar and kind == "ConvolutionCat" and \
                     CV.cat_conv_wants_planar(node, x[1], x[2], cin, cout,
                                              len(ins), ctx):
-                convs.append((tuple(parts), cout, stride, act, x[1], x[2],
-                              False))
+                convs.append((name, (tuple(parts), cout, stride, act, x[1],
+                                     x[2], False)))
             elif planar and CV.conv_wants_planar(node, x[1], x[2], cin, cout,
                                                  ctx):
-                convs.append(((cin,), cout, stride, act, x[1], x[2], False))
-            outs = [(cout, *_conv_out(node, x[1], x[2], False))]
+                convs.append((name, ((cin,), cout, stride, act, x[1], x[2],
+                                     False)))
+            oh, ow = _conv_out(node, x[1], x[2], False)
+            if kind == "rife.ConvPS":
+                r = int(node.p(25, 2))
+                outs = [(cout // (r * r), r * oh, r * ow)]
+            else:
+                outs = [(cout, oh, ow)]
         elif kind in ("Deconvolution", "rife.DeconvPS"):
             cout = int(node.p(0))
-            if (planar and kind == "Deconvolution"
-                    and CV.deconv_wants_planar(node, x[1], x[2], x[0], cout,
-                                               ctx)):
+            if planar and CV.deconv_wants_planar(node, x[1], x[2], x[0], cout,
+                                                 ctx):
                 act = CV.ACT_MAP[C.activation_of(node)[0]]
-                convs.append(((x[0],), 4 * cout, 1, act, x[1], x[2], True))
+                name = ("conv3x3_ps" if kind == "rife.DeconvPS"
+                        else "conv3x3")
+                convs.append((name, ((x[0],), 4 * cout, 1, act, x[1], x[2],
+                                     True)))
             oh, ow = _conv_out(node, x[1], x[2], True)
             if kind == "rife.DeconvPS":
                 outs = [(cout // 4, 2 * oh, 2 * ow)]
@@ -129,8 +141,16 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
         elif kind == "Split":
             outs = [x] * len(node.tops)
         elif kind == "BinaryOp":
-            outs = [tuple(max(d) for d in zip(*ins))]
-        elif kind in ("Eltwise", "Sigmoid", "Clip", "PReLU", "ReLU"):
+            # a (C,) vector broadcasts into a (C, H, W) map
+            big = max(ins, key=len)
+            outs = [tuple(max(s[k] for s in ins if len(s) == len(big))
+                          for k in range(len(big)))]
+        elif kind == "Pooling":
+            outs = [(x[0],)]
+        elif kind == "InnerProduct":
+            outs = [(int(node.p(0)),)]
+        elif kind in ("Eltwise", "Sigmoid", "Clip", "PReLU", "ReLU",
+                      "UnaryOp"):
             outs = [x]
         elif kind == "rife.Warp":
             single(node.bottoms[0], x)
@@ -168,20 +188,21 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
             raise NotImplementedError(f"layer type {kind!r}")
         for top, shape in zip(node.tops, outs):
             shapes[top] = shape
-    if convs:
-        sites["conv3x3"] = len(convs)
+    sites.update(name for name, _ in convs)
     return sites, shapes, convs
 
 
 def _plan(session, h: int, w: int):
-    """(launches per kernel, [(batch factor, conv3x3 site), ...]) of one
-    step.  The batch factor is the run's batch over the session's: 4 for a
-    spatial-TTA view group, twice that for the contextnet, which runs on
-    both frames at once.  Spatial TTA runs each net once per view geometry,
-    canonical and transposed; temporal TTA runs the flownet (v4: every tap
-    and the render; v2: the flownet and the fusionnet) once more, on the
-    swapped pair.  UHD (v2): the flownet runs on the frames halved, without
-    u8-origin warps, and its flow comes back at the usual half resolution."""
+    """(launches per kernel, [(batch factor, site), ...] of ``conv3x3``,
+    the same of ``conv3x3_ps``) of one step.  The batch factor is the run's
+    batch over the session's: 4 for a spatial-TTA view group, for v2 twice
+    that for the contextnet, which runs on both frames at once (v1 runs it
+    once per frame, fed ``flow.0`` and ``flow.1``).  Spatial TTA runs each
+    net once per view geometry, canonical and transposed; temporal TTA runs
+    the flownet (v4: every tap and the render; v1/v2: the flownet and the
+    fusionnet) once more, on the swapped pair.  UHD (v1/v2): the flownet
+    runs on the frames halved, without u8-origin warps, and its flow comes
+    back at the usual half resolution."""
     ph, pw = pad_to(h), pad_to(w)
     tta, temporal = session.tta_mode, session.tta_temporal_mode
     geoms = [(ph, pw), (pw, ph)] if tta else [(ph, pw)]
@@ -189,13 +210,14 @@ def _plan(session, h: int, w: int):
     sweeps = 2 if temporal else 1
     ex = session.executors
     sites: Counter = Counter()
-    convs: List[tuple] = []
+    convs: Dict[str, List[tuple]] = {"conv3x3": [], "conv3x3_ps": []}
 
     def walk(net, inputs, outputs, factor, runs=1, run_ctx=None):
         more, shapes, found = _walk(ex[net], inputs, outputs, run_ctx)
         for _ in range(runs):
             sites.update(more)
-            convs.extend((factor, c) for c in found)
+            for name, site in found:
+                convs[name].append((factor, site))
         return shapes
 
     for gh, gw in geoms:
@@ -217,13 +239,18 @@ def _plan(session, h: int, w: int):
         else:
             flow = walk("flownet", {"input0": img, "input1": img}, ["flow"],
                         views, sweeps)["flow"]
-        shapes = walk("contextnet", {"input.1": img, "flow.0": (2, *flow[1:])},
-                      list(CONTEXT_FEATS), 2 * views)
+        if session.model.family == "v2":
+            runs = [(2 * views, "flow.0")]
+        else:
+            runs = [(views, "flow.0"), (views, "flow.1")]
+        for factor, slot in runs:
+            shapes = walk("contextnet", {"input.1": img, slot: (2, *flow[1:])},
+                          list(CONTEXT_FEATS), factor)
         feats = {str(3 + i + k): shapes[f] for k in (0, 4)
                  for i, f in enumerate(CONTEXT_FEATS)}
         walk("fusionnet", {"img0": img, "img1": img, "flow": flow, **feats},
              ["output"], views, sweeps)
-    return sites, convs
+    return sites, convs["conv3x3"], convs["conv3x3_ps"]
 
 
 def kernel_sites(session, h: int, w: int) -> Dict[str, int]:
@@ -231,12 +258,16 @@ def kernel_sites(session, h: int, w: int) -> Dict[str, int]:
     return dict(_plan(session, h, w)[0])
 
 
-def conv_sites(session, h: int, w: int) -> List[tuple]:
-    """The distinct ``conv3x3`` calls of one step on (h, w) frames, as
-    (batch factor, part channels, cout, stride, activation code, H, W,
-    deconv): a deconv site (``deconv4x4``) has cout = 4 x its channels."""
+def conv_sites(session, h: int, w: int,
+               kernel: str = "conv3x3") -> List[tuple]:
+    """The distinct calls of ``kernel`` (``conv3x3``, or ``conv3x3_ps``: the
+    PixelShuffle sites) in one step on (h, w) frames, as (batch factor, part
+    channels, cout, stride, activation code, H, W, deconv): a deconv site
+    (``deconv4x4``) has cout = 4 x its channels, a PixelShuffle site the
+    channels before the shuffle."""
+    plan = _plan(session, h, w)
     seen = []
-    for factor, site in _plan(session, h, w)[1]:
+    for factor, site in plan[1] if kernel == "conv3x3" else plan[2]:
         if (factor, *site) not in seen:
             seen.append((factor, *site))
     return seen

@@ -1,5 +1,5 @@
-"""RIFE session on PyTorch (port of ``rife_tpu/engine/session.py``, the v4
-and v2 families, plain 2x, the ``-x``/``-z`` TTA modes and UHD ``-u``).
+"""RIFE session on PyTorch (port of ``rife_tpu/engine/session.py``, the v4,
+v2 and v1 families, plain 2x, the ``-x``/``-z`` TTA modes and UHD ``-u``).
 
 One session owns the model's nets after the rewrite chain, their weights on
 the session's device, and one ``Executor`` per net over
@@ -8,19 +8,19 @@ package's graph layer).  ``process_batch`` takes (B,H,W,3) u8 frame pairs and
 (B,) timesteps and returns (B,H,W,3) u8 frames.
 
 The v4 nets run as the TPU runs them, NHWC-style: every conv on cuDNN.  The
-v2/v3 nets run with ctx ``planar_convs``, because the TPU runs them on its
-planar executors: the conv sites that those send to the Pallas planar convs
-take the ``conv3x3`` kernel (``ops/conv.py``).
+v1/v2/v3 nets run with ctx ``planar_convs``, because the TPU runs them on
+its planar executors: the conv sites that those send to the Pallas planar
+convs take the ``conv3x3`` kernel (``ops/conv.py``), its PixelShuffle
+sites ``conv3x3_ps``.
 
 ``fuse_ds2`` is the JAX session's ``RIFE_TPU_FUSE_DS2=1``: the exact rewrite
 of each warp-then-1/2-downscale into ``rife.WarpDs2`` (K3 on a frame copy).
 Off by default, as there; the port reads no ``RIFE_TPU_*`` variable.
 
-``uhd_mode`` (``-u``) runs the v2 flownet on frames halved by ``resize2d``
-(``engine/pipelines.py``); it is ignored for the v4 family, as in the JAX
-session.  Left out, as TPU-only machinery: planar/region executors, the
-warp-variant probe, the compile cache.  The v1 family (ROADMAP A9) raises
-``NotImplementedError``.
+``uhd_mode`` (``-u``) runs the v1/v2 flownet on frames halved by
+``resize2d`` (``engine/pipelines.py``); it is ignored for the v4 family, as
+in the JAX session.  Left out, as TPU-only machinery: planar/region
+executors, the warp-variant probe, the compile cache.
 """
 
 from __future__ import annotations
@@ -95,7 +95,7 @@ def rewrite_planar_net(name, graph, weights, fuse_ds2: bool = False):
 
 
 class RIFE:
-    """Frame-interpolation session for the v4 and v2/v3 families.
+    """Frame-interpolation session for the v4, v2/v3 and v1 families.
 
     ``device`` defaults to "cuda" ("cuda:1", "cpu" on request); asking for
     CUDA without a card raises.  ``dtype`` defaults to bf16 on CUDA and f32
@@ -115,10 +115,6 @@ class RIFE:
         self.tta_temporal_mode = tta_temporal_mode
         # the v4 family ignores -u (rife_tpu session.py:102)
         self.uhd_mode = uhd_mode and family != "v4"
-        if family == "v1":
-            raise NotImplementedError(
-                f"{self.model.name} (v1 family) is not ported yet (ROADMAP "
-                f"queue A, A9)")
         self.executors = {}
         self.weights = {}
         for name, net in self.model.nets.items():
@@ -156,8 +152,9 @@ class RIFE:
         """(B,H,W,3) u8 pairs (numpy or tensors) + (B,) timesteps -> the u8
         result as a tensor on the session's device, without synchronising.
 
-        The v2 family interpolates the midpoint only: any timestep other
-        than 0.5 raises ``ValueError`` (``rife_tpu`` session.py:471-477)."""
+        The v1 and v2 families interpolate the midpoint only: any timestep
+        other than 0.5 raises ``ValueError`` (``rife_tpu``
+        session.py:471-477)."""
         if tuple(in0.shape) != tuple(in1.shape):
             raise ValueError(f"frame shape mismatch: {tuple(in0.shape)} vs "
                              f"{tuple(in1.shape)}")
@@ -182,9 +179,10 @@ class RIFE:
                     self.executor, self.weights["flownet"], a, b,
                     t.to(self.device, non_blocking=True), pad_to(h),
                     pad_to(w), self.dtype, **modes)
-            return pipelines.forward_v2(self.executors, self.weights, a, b,
-                                        pad_to(h), pad_to(w), self.dtype,
-                                        uhd=self.uhd_mode, **modes)
+            return pipelines.forward_v1v2(self.executors, self.weights,
+                                          self.model.family, a, b, pad_to(h),
+                                          pad_to(w), self.dtype,
+                                          uhd=self.uhd_mode, **modes)
 
     def process_batch(self, in0, in1, timesteps) -> np.ndarray:
         """Interpolate a batch: (B,H,W,3) u8 pairs + (B,) timesteps -> u8."""

@@ -124,9 +124,9 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rife_conv3x3.restype = i
     # bf16: 4 part pointers, 4 channel counts, packed weight, its padded
     # Cin, bias, slope, out; batch, H, W, Cout, stride, activation, alpha,
-    # deconv output channels (0: plain conv), stream
+    # deconv output channels (0: plain conv), PixelShuffle factor, stream
     lib.rife_conv3x3_tc.argtypes = ([vp] * 4 + [i] * 4 + [vp, i] + [vp] * 3
-                                    + [i] * 6 + [ctypes.c_float, i, vp])
+                                    + [i] * 6 + [ctypes.c_float, i, i, vp])
     lib.rife_conv3x3_tc.restype = i
     lib.rife_error_string.argtypes = [i]
     lib.rife_error_string.restype = ctypes.c_char_p

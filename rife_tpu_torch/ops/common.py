@@ -10,14 +10,24 @@ from typing import List, Sequence, Tuple
 
 from ..graph.ir import LayerNode
 
-# ncnn BinaryOp op_type (the ones the ported graphs use)
+# ncnn BinaryOp op_type
 BINARY_ADD = 0
 BINARY_SUB = 1
 BINARY_MUL = 2
+BINARY_DIV = 3
+BINARY_MAX = 4
+BINARY_MIN = 5
+BINARY_POW = 6
 BINARY_RSUB = 7
+BINARY_RDIV = 8
 
-# ncnn fused activation_type on Convolution/Deconvolution (the ported ones)
-ACT_NONE, ACT_RELU, ACT_LEAKY = 0, 1, 2
+# ncnn UnaryOp op_type (the v1 graphs use NEG)
+UNARY_ABS, UNARY_NEG, UNARY_FLOOR, UNARY_CEIL = 0, 1, 2, 3
+UNARY_SQUARE, UNARY_SQRT, UNARY_RSQRT, UNARY_EXP = 4, 5, 6, 7
+UNARY_LOG, UNARY_SIN, UNARY_COS, UNARY_TAN = 8, 9, 10, 11
+
+# ncnn fused activation_type on Convolution/Deconvolution/InnerProduct
+ACT_NONE, ACT_RELU, ACT_LEAKY, ACT_CLIP, ACT_SIGMOID = 0, 1, 2, 3, 4
 # private extension (graph/rewrite.py fuse_prelu_activations): per-channel
 # PReLU folded into the conv; the slope rides the conv's LayerWeights.
 ACT_PRELU_CH = 100

@@ -48,7 +48,7 @@ import torch.nn.functional as F
 from . import common as C
 from . import launch as L
 
-LAUNCHES = {"conv3x3": 0}
+LAUNCHES = {"conv3x3": 0, "conv3x3_ps": 0}
 
 CONV_MIN_HW = 400_000
 DECONV_MIN_HW = 25_000
@@ -61,7 +61,8 @@ ACT_MAP = {C.ACT_NONE: ACT_NONE, C.ACT_RELU: ACT_RELU,
 
 
 def reset_launches() -> None:
-    LAUNCHES["conv3x3"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -147,16 +148,18 @@ def activate_f32(y: torch.Tensor, act: int, alpha: float, slope):
 
 
 def conv3x3_ref(parts, weight, bias=None, slope=None, *, stride=1,
-                act=ACT_NONE, alpha=0.2):
+                act=ACT_NONE, alpha=0.2, ps=1):
     """Twin of the kernel: ``F.conv2d`` on f32 copies of the concat (TF32
     off), then + f32 bias, the activation in f32 and one cast to the
-    storage dtype of ``parts``."""
+    storage dtype of ``parts``; with ``ps`` > 1, ``F.pixel_shuffle`` of
+    that."""
     x = torch.cat([p.float() for p in parts], dim=1)
     with _full_f32():
         y = F.conv2d(x, weight.float(), None, stride=stride, padding=1)
     if bias is not None:
         y = y + bias.float().reshape(1, -1, 1, 1)
-    return activate_f32(y, act, alpha, slope).to(parts[0].dtype)
+    y = activate_f32(y, act, alpha, slope).to(parts[0].dtype)
+    return F.pixel_shuffle(y, ps) if ps > 1 else y
 
 
 def deconv_phase_weights(weight: torch.Tensor) -> torch.Tensor:
@@ -188,13 +191,15 @@ def interleave_phases(y4: torch.Tensor) -> torch.Tensor:
 
 
 def deconv4x4_ref(x, phase_weight, phase_bias=None, phase_slope=None, *,
-                  act=ACT_NONE, alpha=0.2):
+                  act=ACT_NONE, alpha=0.2, ps=1):
     """Twin of the kernel's deconv form: ``conv3x3_ref`` over the phase
     weights, then ``interleave_phases`` (the kernel writes each phase to its
-    interleaved place itself)."""
+    interleaved place itself); with ``ps`` > 1, ``F.pixel_shuffle`` of
+    that."""
     y4 = conv3x3_ref([x], phase_weight, phase_bias, phase_slope, stride=1,
                      act=act, alpha=alpha)
-    return interleave_phases(y4)
+    y = interleave_phases(y4)
+    return F.pixel_shuffle(y, ps) if ps > 1 else y
 
 
 def padded_cin(cin: int) -> int:
@@ -285,10 +290,12 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
 
 
 def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
-            phase_o=0):
+            phase_o=0, ps=1):
     """One launch: the tensor-core kernel for bf16 (over ``weight_tc``, the
-    packed weights; ``phase_o`` > 0 writes a deconv's interleaved phases),
-    the CUDA-core kernel for f32."""
+    packed weights; ``phase_o`` > 0 writes a deconv's interleaved phases,
+    ``ps`` > 1 the PixelShuffle(ps) of the result), the CUDA-core kernel
+    for f32 (which writes the plain result).  It counts as ``conv3x3_ps``
+    when ``ps`` > 1, else as ``conv3x3``."""
     b, h, w = parts[0].shape[0], parts[0].shape[2], parts[0].shape[3]
     cout = weight.shape[0]
     padded = parts + [None] * (MAX_PARTS - len(parts))
@@ -298,50 +305,79 @@ def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
         L.launch("rife_conv3x3_tc", device, *map(L.ptr, padded), *chans,
                  L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias),
                  L.ptr(slope), L.ptr(out), b, h, w, cout, stride, act,
-                 ctypes.c_float(alpha), phase_o)
+                 ctypes.c_float(alpha), phase_o, ps)
     else:
         L.launch("rife_conv3x3", device, *map(L.ptr, padded), *chans,
                  L.ptr(weight), L.ptr(bias), L.ptr(slope), L.ptr(out), b, h,
                  w, cout, stride, act, ctypes.c_float(alpha))
-    LAUNCHES["conv3x3"] += 1
+    LAUNCHES["conv3x3_ps" if ps > 1 else "conv3x3"] += 1
+
+
+def _check_ps(ps, channels):
+    if ps < 1 or channels % (ps * ps):
+        raise ValueError(f"PixelShuffle({ps}) of {channels} channels")
 
 
 def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
-            alpha=0.2, weight_tc=None):
+            alpha=0.2, weight_tc=None, ps=1):
     """The kernel on CUDA, its twin on the CPU.  ``parts``: 1-4 (B,Ci,H,W)
     tensors whose channel concat is the input; ``weight`` (Cout, sum Ci, 3,
     3) in their dtype; ``weight_tc`` the same weights packed once
     (``pack_weight_tc``), which a bf16 launch reads and needs;
-    ``bias``/``slope`` (Cout,) float32 or None.  Returns (B, Cout,
-    Ho, Wo) in the parts' dtype."""
+    ``bias``/``slope`` (Cout,) float32 or None.  Returns (B, Cout, Ho, Wo)
+    in the parts' dtype; with ``ps`` > 1 (B4, ``rife.ConvPS``) its
+    PixelShuffle(ps), (B, Cout/ps^2, ps*Ho, ps*Wo): in bf16 one launch whose
+    epilogue writes each output channel c*ps^2 + i*ps + j of pixel (y, x)
+    to (c, ps*y + i, ps*x + j), in f32 the CUDA-core kernel, then
+    ``F.pixel_shuffle``."""
     parts = list(parts)
     if parts[0].device.type == "cpu":
         return conv3x3_ref(parts, weight, bias, slope, stride=stride, act=act,
-                           alpha=alpha)
+                           alpha=alpha, ps=ps)
     b, h, w, cout = _check(parts, weight, bias, slope, stride, act, weight_tc)
+    _check_ps(ps, cout)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    if ps > 1 and parts[0].dtype == torch.bfloat16:
+        out = parts[0].new_empty((b, cout // (ps * ps), ps * ho, ps * wo))
+        _launch(parts, weight, bias, slope, out, stride, act, alpha,
+                weight_tc, ps=ps)
+        return out
     out = parts[0].new_empty((b, cout, ho, wo))
-    _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc)
-    return out
+    _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
+            ps=ps)
+    return F.pixel_shuffle(out, ps) if ps > 1 else out
 
 
 def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
-              act=ACT_NONE, alpha=0.2, phase_weight_tc=None):
+              act=ACT_NONE, alpha=0.2, phase_weight_tc=None, ps=1):
     """4x4 stride-2 pad-1 transposed conv as a stride-1 conv over the phase
     weights (``deconv_phase_weights``; bias and slope tiled 4x), the phases
-    interleaved into (B, O, 2H, 2W).  CUDA bf16: one launch that writes the
-    interleaved output (``phase_weight_tc`` the packed phase weights).
-    Otherwise ``conv3x3`` (the twin on the CPU, the CUDA-core kernel for
-    f32), then ``interleave_phases``: what ``deconv4x4_ref`` computes."""
-    if x.device.type == "cpu" or x.dtype != torch.bfloat16:
-        return interleave_phases(conv3x3([x], phase_weight, phase_bias,
-                                         phase_slope, stride=1, act=act,
-                                         alpha=alpha))
+    interleaved into (B, O, 2H, 2W); with ``ps`` = 2 (B4, ``rife.DeconvPS``)
+    its PixelShuffle(2), (B, O/4, 4H, 4W).  CUDA bf16: one launch that writes
+    the interleaved (and shuffled) output (``phase_weight_tc`` the packed
+    phase weights).  Otherwise ``conv3x3`` (the twin on the CPU, the
+    CUDA-core kernel for f32), then ``interleave_phases`` (and
+    ``F.pixel_shuffle``): what ``deconv4x4_ref`` computes."""
+    if x.device.type == "cpu":
+        y = interleave_phases(conv3x3([x], phase_weight, phase_bias,
+                                      phase_slope, stride=1, act=act,
+                                      alpha=alpha))
+        return F.pixel_shuffle(y, ps) if ps > 1 else y
     b, h, w, cout = _check([x], phase_weight, phase_bias, phase_slope, 1, act,
                            phase_weight_tc)
     if cout % 4:
         raise ValueError(f"phase weights need 4*O output channels, got {cout}")
-    out = x.new_empty((b, cout // 4, 2 * h, 2 * w))
-    _launch([x], phase_weight, phase_bias, phase_slope, out, 1, act, alpha,
-            phase_weight_tc, phase_o=cout // 4)
-    return out
+    if ps not in (1, 2):
+        raise ValueError(f"deconv4x4 shuffles by 2 or not at all, got {ps}")
+    _check_ps(ps, cout // 4)
+    if x.dtype == torch.bfloat16:
+        o = cout // 4 // (ps * ps)
+        out = x.new_empty((b, o, 2 * ps * h, 2 * ps * w))
+        _launch([x], phase_weight, phase_bias, phase_slope, out, 1, act, alpha,
+                phase_weight_tc, phase_o=cout // 4, ps=ps)
+        return out
+    y4 = x.new_empty((b, cout, h, w))
+    _launch([x], phase_weight, phase_bias, phase_slope, y4, 1, act, alpha,
+            phase_weight_tc, ps=ps)
+    y = interleave_phases(y4)
+    return F.pixel_shuffle(y, ps) if ps > 1 else y

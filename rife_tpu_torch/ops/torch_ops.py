@@ -1,10 +1,12 @@
-"""PyTorch implementations of the ncnn layer kinds the rife-v4.6 and rife-v2.3
-paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by the
-``Executor`` of ``graph/executor.py``.
+"""PyTorch implementations of the ncnn layer kinds the v4.6, v2.3 and v1
+paths run (port of ``rife_tpu/ops/jax_ops.py``), driven by the ``Executor``
+of ``graph/executor.py``.
 
 Tensors are NCHW; an ncnn CHW axis ``a`` of a rank-4 blob is torch dim
-``a + 1``.  Every kind outside ``OP_TABLE`` raises ``NotImplementedError``
-in ``Executor.run``.  Parity traps handled here (ROADMAP queue C):
+``a + 1``, and the v1 SE gates carry (B,C) vectors (global ``Pooling``,
+``InnerProduct``), which a ``BinaryOp`` broadcasts into a (B,C,H,W) map.
+Every kind outside ``OP_TABLE`` raises ``NotImplementedError`` in
+``Executor.run``.  Parity traps handled here (ROADMAP queue C):
 
 * resize is phase-decomposed ``a*(1-f) + b*f`` in the storage dtype and a
   downsample is ``0.5*a + 0.5*b`` (``jax_ops.py:183-261``), not
@@ -15,17 +17,22 @@ in ``Executor.run``.  Parity traps handled here (ROADMAP queue C):
 * PixelShuffle is ``F.pixel_shuffle`` (channel c*r*r + i*r + j, as
   ``jax_ops.pixel_shuffle``);
 * scalar constants are cast to the storage dtype before they multiply, as
-  ``jnp.asarray(c, x.dtype)`` does.
+  ``jnp.asarray(c, x.dtype)`` does;
+* ``InnerProduct`` rounds its f32 product to the storage dtype before it
+  adds the bias in that dtype, and global ``Pooling`` sums in f32 and
+  divides before its one rounding, as ``jnp.dot`` / ``jnp.mean`` do.
 
 Convolutions go to ``F.conv2d`` / ``F.conv_transpose2d`` (cuDNN on the
 card), as the JAX package leaves them to XLA, except at the sites that the
 TPU's planar executor sends to its Pallas convs: in a net run with ctx
 ``planar_convs`` (the v1/v2/v3 nets), the gates of ``ops/conv.py`` route a
-site to the ``conv3x3`` kernel (K9-K12).  The warps dispatch into
-``ops/warp.py``: the pair kernels for paired u8-origin warps, the fused warp
-+ 1/2 downsample (K3) for ``rife.WarpDs2`` of a frame copy, the single-warp
-kernel for the rest (u8-origin mode K4, float mode K1/K2).  A run whose ctx
-sets ``no_u8_warp`` (the UHD flownet) sends every warp to the float mode.
+site to the ``conv3x3`` kernel (K9-K12), and a ``rife.ConvPS`` /
+``rife.DeconvPS`` site to its PixelShuffle form (B4, ``conv3x3_ps``).  The
+warps dispatch into ``ops/warp.py``: the pair kernels for paired u8-origin
+warps, the fused warp + 1/2 downsample (K3) for ``rife.WarpDs2`` of a frame
+copy, the single-warp kernel for the rest (u8-origin mode K4, float mode
+K1/K2).  A run whose ctx sets ``no_u8_warp`` (the UHD flownet) sends every
+warp to the float mode.
 """
 
 from __future__ import annotations
@@ -60,15 +67,20 @@ def _dim(axis: int, rank: int) -> int:
 # ---------------------------------------------------------------------------
 
 def apply_activation(y: torch.Tensor, act: int, params, slope=None):
-    """The fused activations of the zoo's convs, in the storage dtype: none,
-    ReLU, leaky relu, and per-channel PReLU (``slope`` broadcastable to
-    (1,C,1,1), already in that dtype; ``jax_ops._prelu_ch``)."""
+    """The fused activations of the zoo's convs and inner products, in the
+    storage dtype: none, ReLU, leaky relu, clip, sigmoid (``sigmoid``) and
+    per-channel PReLU (``slope`` broadcastable to (1,C,1,1), already in that
+    dtype; ``jax_ops._prelu_ch``)."""
     if act == C.ACT_NONE:
         return y
     if act == C.ACT_RELU:
         return torch.clamp_min(y, 0)
     if act == C.ACT_LEAKY:
         return torch.where(y >= 0, y, y * _const(y, params[0]))
+    if act == C.ACT_CLIP:
+        return torch.clamp(y, params[0], params[1])
+    if act == C.ACT_SIGMOID:
+        return sigmoid(y)
     if act == C.ACT_PRELU_CH:
         return torch.where(y >= 0, y, y * slope)
     raise NotImplementedError(f"fused activation {act} is not ported")
@@ -125,6 +137,20 @@ def resize2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return x
 
 
+def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Nearest resize as ``jax.image.resize(..., "nearest")`` computes it:
+    output index i of an axis of n reads input floor((i + 0.5) * m / n),
+    the product and quotient in f32; an axis whose size stays is left as
+    it is."""
+    for dim, dst in ((2, out_h), (3, out_w)):
+        src = x.shape[dim]
+        if dst == src:
+            continue
+        pos = (torch.arange(dst, dtype=torch.float32) + 0.5) * src / dst
+        x = x.index_select(dim, torch.floor(pos).long().to(x.device))
+    return x
+
+
 # ---------------------------------------------------------------------------
 # layer table
 # ---------------------------------------------------------------------------
@@ -141,11 +167,11 @@ def _kernel_act(node):
     return CV.ACT_MAP[act], alpha
 
 
-def _conv_kernel(node, parts, p, stride):
+def _conv_kernel(node, parts, p, stride, **kw):
     act, alpha = _kernel_act(node)
     return CV.conv3x3([x.contiguous() for x in parts], p["weight"],
                       p["bias_f32"], p.get("slope_f32"), stride=stride,
-                      act=act, alpha=alpha, weight_tc=p.get("weight_tc"))
+                      act=act, alpha=alpha, weight_tc=p.get("weight_tc"), **kw)
 
 
 def _op_convolution(node, inputs, w, ctx):
@@ -197,21 +223,37 @@ def _op_deconvolution(node, inputs, w, ctx):
     return [_conv_act(node, y, p)]
 
 
-def _op_deconv_ps(node, inputs, w, ctx):
-    """rife.DeconvPS (rewrite fuse_pixelshuffle_into_convs): deconv, then
-    PixelShuffle by params[25].  At a planar site the TPU runs
-    ``conv_planar.deconv_ps_planar``, which no ported net reaches: it
-    raises there."""
+def _op_conv_ps(node, inputs, w, ctx):
+    """rife.ConvPS / rife.DeconvPS (rewrite fuse_pixelshuffle_into_convs):
+    the conv (a 4x4 stride-2 deconv), then PixelShuffle by params[25].  At a
+    planar site (the gates on the pre-shuffle channels, as
+    ``planar_ops._op_conv_ps`` asks them) the kernel writes the shuffled
+    tensor itself (B4: ``conv3x3(..., ps=r)``, ``deconv4x4(..., ps=2)``);
+    elsewhere the two ops are composed (``jax_ops._op_conv_ps``)."""
     p = ctx["w"][node.name]
     x = inputs[0]
-    if ctx.get("planar_convs") and CV.deconv_wants_planar(
-            node, x.shape[2], x.shape[3], p["weight"].shape[0],
-            p["weight"].shape[1], ctx):
-        raise NotImplementedError(
-            f"rife.DeconvPS {node.name} at a planar conv site "
-            f"(deconv_ps_planar) is not ported")
-    y = _op_deconvolution(node, inputs, w, ctx)[0]
-    return [F.pixel_shuffle(y, int(node.p(25, 2)))]
+    r = int(node.p(25, 2))
+    h, wid = x.shape[2], x.shape[3]
+    if node.type == "rife.DeconvPS":
+        cin, cout = p["weight"].shape[0], p["weight"].shape[1]
+        if ctx.get("planar_convs") and CV.deconv_wants_planar(
+                node, h, wid, cin, cout, ctx):
+            act, alpha = _kernel_act(node)
+            return [CV.deconv4x4(x.contiguous(), p["phase_weight"],
+                                 p["phase_bias_f32"],
+                                 p.get("phase_slope_f32"), act=act,
+                                 alpha=alpha,
+                                 phase_weight_tc=p["phase_weight_tc"],
+                                 ps=2)]
+        y = _op_deconvolution(node, inputs, w, ctx)[0]
+    else:
+        cout, cin = p["weight"].shape[0], p["weight"].shape[1]
+        if ctx.get("planar_convs") and CV.conv_wants_planar(
+                node, h, wid, cin, cout, ctx):
+            _, _, _, stride, _, _ = C.conv_hyperparams(node)
+            return [_conv_kernel(node, [x], p, stride, ps=r)]
+        y = _op_convolution(node, inputs, w, ctx)[0]
+    return [F.pixel_shuffle(y, r)]
 
 
 def _op_pixelshuffle(node, inputs, w, ctx):
@@ -221,9 +263,11 @@ def _op_pixelshuffle(node, inputs, w, ctx):
 def _op_interp(node, inputs, w, ctx):
     x = inputs[0]
     rtype, oh, ow = C.interp_out_size(x.shape[2], x.shape[3], node)
+    if rtype == 1:
+        return [resize_nearest(x, oh, ow)]
     if rtype != 2:
         raise NotImplementedError(f"Interp resize_type {rtype}: only "
-                                  f"bilinear is ported")
+                                  f"nearest and bilinear are ported")
     return [resize2d(x, oh, ow)]
 
 
@@ -274,13 +318,29 @@ def _op_clip(node, inputs, w, ctx):
     return [torch.clamp(inputs[0], float(node.p(0)), float(node.p(1)))]
 
 
-# the op types the v4.6 and v2.3 graphs use
 _BINARY = {
     C.BINARY_ADD: lambda a, b: a + b,
     C.BINARY_SUB: lambda a, b: a - b,
     C.BINARY_MUL: lambda a, b: a * b,
+    C.BINARY_DIV: lambda a, b: a / b,
+    C.BINARY_MAX: torch.maximum,
+    C.BINARY_MIN: torch.minimum,
+    C.BINARY_POW: torch.pow,
     C.BINARY_RSUB: lambda a, b: b - a,
+    C.BINARY_RDIV: lambda a, b: b / a,
 }
+
+
+def _broadcast_pair(a: torch.Tensor, b: torch.Tensor):
+    """A (B,C) vector against a (B,C,H,W) map, either side
+    (``jax_ops._broadcast_pair``): the vector becomes (B,C,1,1)."""
+    if a.ndim == b.ndim:
+        return a, b
+    if a.ndim == 2 and b.ndim == 4:
+        return a[:, :, None, None], b
+    if a.ndim == 4 and b.ndim == 2:
+        return a, b[:, :, None, None]
+    raise ValueError(f"cannot broadcast ranks {a.ndim} vs {b.ndim}")
 
 
 def _op_binaryop(node, inputs, w, ctx):
@@ -291,9 +351,57 @@ def _op_binaryop(node, inputs, w, ctx):
     a = inputs[0]
     if int(node.p(1, 0)) == 1:
         return [op(a, _const(a, float(node.p(2, 0.0))))]
-    if inputs[1].ndim != a.ndim:
-        raise NotImplementedError("BinaryOp broadcast across ranks")
-    return [op(a, inputs[1])]
+    return [op(*_broadcast_pair(a, inputs[1]))]
+
+
+_UNARY = {
+    C.UNARY_ABS: torch.abs,
+    C.UNARY_NEG: torch.neg,
+    C.UNARY_FLOOR: torch.floor,
+    C.UNARY_CEIL: torch.ceil,
+    C.UNARY_SQUARE: torch.square,
+    C.UNARY_SQRT: torch.sqrt,
+    C.UNARY_RSQRT: torch.rsqrt,
+    C.UNARY_EXP: torch.exp,
+    C.UNARY_LOG: torch.log,
+    C.UNARY_SIN: torch.sin,
+    C.UNARY_COS: torch.cos,
+    C.UNARY_TAN: torch.tan,
+}
+
+
+def _op_unaryop(node, inputs, w, ctx):
+    op = _UNARY.get(int(node.p(0, 0)))
+    if op is None:
+        raise NotImplementedError(f"UnaryOp op_type {node.p(0, 0)} is not "
+                                  f"ported")
+    return [op(inputs[0])]
+
+
+def _op_pooling(node, inputs, w, ctx):
+    """Global average pooling (``0=1 4=1``), the only kind the zoo uses:
+    (B,C,H,W) -> (B,C), summed in f32 and divided before one rounding to
+    the storage dtype, as ``jnp.mean`` computes it."""
+    if int(node.p(4, 0)) != 1 or int(node.p(0, 0)) != 1:
+        raise NotImplementedError("only global average pooling is used by "
+                                  "the zoo")
+    x = inputs[0]
+    n = x.shape[2] * x.shape[3]
+    return [(torch.sum(x, dim=(2, 3), dtype=torch.float32) / n).to(x.dtype)]
+
+
+def _op_innerproduct(node, inputs, w, ctx):
+    """(B,in) -> (B,out) (``jax_ops._op_innerproduct``): the product in f32
+    (bf16 operands are exact in f32), rounded to the storage dtype, then the
+    bias added in that dtype (ROADMAP queue C #7's trap), then the fused
+    activation."""
+    x = inputs[0]
+    p = ctx["w"][node.name]
+    y = (x.float() @ p["weight"].float().t()).to(x.dtype)
+    if p["bias"] is not None:
+        y = y + p["bias"]
+    act, params = C.activation_of(node)
+    return [apply_activation(y, act, params)]
 
 
 def _op_eltwise(node, inputs, w, ctx):
@@ -447,7 +555,11 @@ OP_TABLE = {
     "Convolution": _op_convolution,
     "ConvolutionCat": _op_convolution_cat,
     "Deconvolution": _op_deconvolution,
-    "rife.DeconvPS": _op_deconv_ps,
+    "InnerProduct": _op_innerproduct,
+    "Pooling": _op_pooling,
+    "UnaryOp": _op_unaryop,
+    "rife.ConvPS": _op_conv_ps,
+    "rife.DeconvPS": _op_conv_ps,
     "PixelShuffle": _op_pixelshuffle,
     "Interp": _op_interp,
     "Concat": _op_concat,
@@ -473,7 +585,7 @@ OP_TABLE = {
 # weights
 # ---------------------------------------------------------------------------
 
-_CONV_KINDS = ("Convolution", "ConvolutionCat")
+_CONV_KINDS = ("Convolution", "ConvolutionCat", "rife.ConvPS")
 _DECONV_KINDS = ("Deconvolution", "rife.DeconvPS")
 
 
@@ -488,8 +600,9 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
     and the per-channel ``slope_f32`` for the ``conv3x3`` sites (the
     planar kernels' form) and, for a 3x3 conv, ``weight_tc``, the weights
     packed once for the tensor-core kernel (``ops/conv.py``
-    ``pack_weight_tc``); for a 4x4 stride-2 Deconvolution that the gates can
-    send to the kernel, its phase weights (plain and packed) and the 4x
+    ``pack_weight_tc``); for a 4x4 stride-2 Deconvolution (or
+    ``rife.DeconvPS``) that the gates can send to the kernel, its phase
+    weights (plain and packed) and the 4x
     tiled f32 bias and slope (``deconv_phase_weights``)."""
     out_ch = weight.shape[1] if node.type in _DECONV_KINDS else weight.shape[0]
     e = {"weight": _tensor(weight, dtype, device),
@@ -505,7 +618,7 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
         e["slope"] = _tensor(np.asarray(slope, np.float32).reshape(1, -1, 1, 1),
                              dtype, device)
         e["slope_f32"] = _tensor(slope_f32, torch.float32, device)
-    if node.type == "Deconvolution":
+    if node.type in _DECONV_KINDS:
         _, k, _, stride, pad, _ = C.conv_hyperparams(node)
         if CV.planar_deconv_ok(weight.shape[0], out_ch, k, stride, pad):
             w3 = CV.deconv_phase_weights(torch.from_numpy(
@@ -524,8 +637,9 @@ def prepare_weights(graph, raw, dtype=torch.float32, device="cpu"):
     """ncnn-layout numpy weights -> torch tensors (see ``_entry``).
 
     Convolution keeps ncnn's (O,I,kh,kw) = torch OIHW; Deconvolution keeps
-    ncnn's raw (I,O,kh,kw), which ``F.conv_transpose2d`` takes as it is; a
-    standalone PReLU keeps its slopes, in the storage dtype."""
+    ncnn's raw (I,O,kh,kw), which ``F.conv_transpose2d`` takes as it is;
+    InnerProduct keeps ncnn's (out, in) weight and its bias, and a
+    standalone PReLU its slopes, all in the storage dtype."""
     out = {}
     for node in graph.nodes:
         lw = raw.get(node.name)
@@ -534,6 +648,9 @@ def prepare_weights(graph, raw, dtype=torch.float32, device="cpu"):
         if node.type in _CONV_KINDS + _DECONV_KINDS:
             out[node.name] = _entry(node, lw.weight, lw.bias, lw.slope, dtype,
                                     device)
+        elif node.type == "InnerProduct":
+            out[node.name] = {"weight": _tensor(lw.weight, dtype, device),
+                              "bias": _tensor(lw.bias, dtype, device)}
         elif node.type == "PReLU":
             out[node.name] = {"slope": _tensor(lw.slope, dtype, device)}
     return out
@@ -542,7 +659,8 @@ def prepare_weights(graph, raw, dtype=torch.float32, device="cpu"):
 def weights_from_jax(graph, tree, dtype=torch.float32, device="cpu"):
     """The JAX package's prepared weights (``jax_ops.prepare_weights``, as
     numpy arrays) -> this module's: HWIO convs become OIHW, the spatially
-    flipped HWIO deconvs become ncnn's (I,O,kh,kw)."""
+    flipped HWIO deconvs become ncnn's (I,O,kh,kw), an InnerProduct's
+    (in, out) ``dense`` becomes (out, in)."""
     out = {}
     for node in graph.nodes:
         e = tree.get(node.name)
@@ -550,6 +668,12 @@ def weights_from_jax(graph, tree, dtype=torch.float32, device="cpu"):
             continue
         if node.type == "PReLU":
             out[node.name] = {"slope": _tensor(e["slope"], dtype, device)}
+            continue
+        if node.type == "InnerProduct":
+            out[node.name] = {
+                "weight": _tensor(np.asarray(e["dense"], np.float32).T,
+                                  dtype, device),
+                "bias": _tensor(e["bias"], dtype, device)}
             continue
         if node.type not in _CONV_KINDS + _DECONV_KINDS:
             continue

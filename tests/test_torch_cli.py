@@ -4,14 +4,13 @@ synthetic weights: the same parsing and planning, the same return codes on
 invalid input, and outputs within the session tests' f32 bar (u8 max |d| <=
 1 and >= 99.9% exact: on the CPU ``rife_tpu`` warps with XLA's ``warp_at``
 and the port with the twins of the Pallas kernels).  Then the port's own
-rules: without a card only ``-g -1`` runs, ``-g all`` and the v1 family are
-refused, and ``RIFE_TORCH_RANK``/``RIFE_TORCH_WORLD`` split the outputs.
+rules: without a card only ``-g -1`` runs, ``-g all`` is refused, a v1 dir
+runs, and ``RIFE_TORCH_RANK``/``RIFE_TORCH_WORLD`` split the outputs.
 """
 
 import dataclasses
 import getopt
 import os
-import shutil
 from pathlib import Path
 
 import numpy as np
@@ -21,11 +20,13 @@ from PIL import Image
 
 import rife_tpu.cli as jax_cli
 from rife_tpu_torch import cli
+from rife_tpu_torch.models.v1_arch import write_v1_params
 from rife_tpu_torch.models.v23_arch import write_v23_params
 from rife_tpu_torch.models.v46_arch import write_flownet_param
 
 V46_MINI = (16, 16, 16, 16)
 V23_MINI = (8, 8, 8, 8, 4)
+V1_MINI = (8, 8, 8, 4)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -245,18 +246,21 @@ def test_invalid_device_ids(tmp_path, models, monkeypatch, capsys):
         assert "invalid device" in capsys.readouterr().err
 
 
-def test_v1_model_dir_is_refused(tmp_path, models, capsys):
-    """A v1 dir (no rife-v2/v3/v4 in its path) makes the session raise
-    NotImplementedError; the CLI prints it and returns 255."""
-    v1 = tmp_path / "rife-HD"
-    shutil.copytree(models["v2.3"], v1)
-    write_frames(tmp_path, 2, 32, 32)
-    rc = cli.main(["-0", str(tmp_path / "000.png"), "-1",
-                   str(tmp_path / "001.png"), "-o", str(tmp_path / "o.png"),
-                   "-m", str(v1), "-g", "-1"])
-    assert rc == 255
-    assert "not ported" in capsys.readouterr().err
-    assert not (tmp_path / "o.png").exists()
+def test_v1_model_dir_is_refused(tmp_path, models):
+    """A v1 dir (no rife-v2/v3/v4 in its path) is no longer refused: the CLI
+    runs it on the CPU and writes what the session computes for the pair,
+    byte for byte; -s other than 0.5 is refused as for v2."""
+    from rife_tpu_torch import RIFE
+
+    v1 = write_v1_params(tmp_path / "m", V1_MINI)
+    write_frames(tmp_path, 2, 40, 56)
+    argv = ["-0", str(tmp_path / "000.png"), "-1", str(tmp_path / "001.png"),
+            "-o", str(tmp_path / "o.png"), "-m", str(v1), "-g", "-1"]
+    assert cli.main(argv) == 0
+    a, b = (np.asarray(Image.open(tmp_path / f"00{i}.png")) for i in (0, 1))
+    want = RIFE(str(v1), device="cpu").process(a, b)
+    assert np.array_equal(np.asarray(Image.open(tmp_path / "o.png")), want)
+    assert cli.main(argv + ["-s", "0.25"]) == 255
 
 
 def test_ranks_write_disjoint_complete_outputs(tmp_path, models, monkeypatch):

@@ -5,7 +5,8 @@ weights bit for bit, the twin over the packed layout equals ``conv3x3_ref``
 bit for bit, the deconv twin (``deconv4x4_ref``, the phases interleaved)
 equals ``deconv4x4``'s interleave of the phase conv, and a Python mirror of
 the kernel's epilogue addressing (channel groups, 16-column tiles, 8-column
-stores, the deconv's phase pairs) puts every value where the twins do.  The
+stores, the deconv's phase pairs, the PixelShuffle rows of B4) puts every
+value where the twins do.  The
 kernel itself against the twins: tests/test_torch_cuda.py, on the card."""
 
 import numpy as np
@@ -91,33 +92,53 @@ def test_packed_twin_equals_twin(sites, i):
                                            stride=stride, act=act))
 
 
-def kernel_groups(cout, phase_o):
+def kernel_groups(cout, phase_o, ps=1):
     """The kernel's channel groups (``rife_conv3x3_tc``): at most 64
-    channels; a deconv's two groups are its two phase rows."""
-    n = (1 if cout <= 64 else 2) if phase_o else (cout + 63) // 64
-    size = (cout + n - 1) // n
+    channels; a deconv's two groups are its two phase rows, a
+    PixelShuffle's hold whole blocks of ps^2 channels."""
+    if phase_o:
+        n = 1 if cout <= 64 else 2
+        size = (cout + n - 1) // n
+    else:
+        blk = ps * ps
+        n = (cout + 63) // 64
+        size = -(-(cout // blk) // n) * blk
     assert size <= 64 and (not phase_o or n == 1 or size == 2 * phase_o)
     return [(g * size, min(size, cout - g * size)) for g in range(n)]
 
 
-def mirror_store(y, phase_o, span):
+def out_row(s, phase_o, ps):
+    """``csrc/conv.cu`` ``out_row``: (cc, dy, channel of column k)."""
+    if phase_o == 0:
+        return s // ps, s % ps, lambda k: s * ps + k
+    if ps == 1:
+        py, cc = s // phase_o, s % phase_o
+        return cc, py, lambda k: 2 * py * phase_o + k * phase_o + cc
+    q = phase_o // 4
+    d, cc = s // q, s % q
+    base = 2 * (d >> 1) * phase_o + 4 * cc + 2 * (d & 1)
+    return cc, d, lambda k: base + (k // 2) * phase_o + k % 2
+
+
+def mirror_store(y, phase_o, span, ps=1):
     """Place the (B, N, Ho, Wo) per-channel results (N phase channels for a
     deconv) as the kernel's epilogue does: per channel group, per tile of
     ``span`` output columns (16, the m16 rows of an MMA) and row, lanes of 8
-    output columns."""
+    output columns; an interleaved output (a deconv's phases, a
+    PixelShuffle(ps), or both) row by row of R = (2 if deconv) x ps
+    staged channels, column R x + k from the k-th."""
     b, n_ch, ho, wo = y.shape
-    if phase_o:
-        out = torch.full((b, phase_o, 2 * ho, 2 * wo), float("nan"))
-    else:
-        out = torch.full_like(y, float("nan"))
-    for g0, n_valid in kernel_groups(n_ch, phase_o):
+    rr = (2 if phase_o else 1) * ps
+    out_ch = (phase_o or n_ch) // (ps * ps)
+    out = torch.full((b, out_ch, rr * ho, rr * wo), float("nan"))
+    for g0, n_valid in kernel_groups(n_ch, phase_o, ps):
         for ox0 in range(0, wo, span):
             for oy in range(ho):
                 ob = torch.zeros(b, 64, span)  # a warp's staged row
                 cols = min(span, wo - ox0)
                 ob[:, :n_valid, :cols] = y[:, g0:g0 + n_valid, oy,
                                            ox0:ox0 + cols]
-                if not phase_o:
+                if rr == 1:
                     vecs = span // 8
                     for idx in range(n_valid * vecs):
                         n, h = idx // vecs, idx % vecs
@@ -127,18 +148,15 @@ def mirror_store(y, phase_o, span):
                             out[:, g0 + n, oy, x0:x0 + k] = \
                                 ob[:, n, 8 * h:8 * h + k]
                     continue
-                for idx in range((n_valid // 2) * (span // 4)):
-                    pair = g0 // 2 + idx // (span // 4)
-                    q = idx % (span // 4)
-                    py, o = pair // phase_o, pair % phase_o
-                    n0 = py * 2 * phase_o + o - g0
-                    n1 = n0 + phase_o
-                    col0 = 2 * ox0 + 8 * q
-                    for k in range(8):
-                        if col0 + k < 2 * wo:
-                            src = n1 if k & 1 else n0
-                            out[:, o, 2 * oy + py, col0 + k] = \
-                                ob[:, src, 4 * q + (k >> 1)]
+                chunks = span * rr // 8
+                for idx in range((n_valid // rr) * chunks):
+                    cc, dy, chan = out_row(g0 // rr + idx // chunks, phase_o,
+                                           ps)
+                    col0 = 8 * (idx % chunks)
+                    for c in range(col0, col0 + 8):
+                        if rr * ox0 + c < rr * wo:
+                            out[:, cc, rr * oy + dy, rr * ox0 + c] = \
+                                ob[:, chan(c % rr) - g0, c // rr]
     return out
 
 
@@ -159,6 +177,39 @@ def test_kernel_store_addressing(sites, i):
             want = CV.deconv4x4_ref(xs_c[0], weight, bias, slope, act=act)
         else:
             got, want = mirror_store(y, 0, 16), y
+        assert not torch.isnan(got).any()
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", [
+    ("conv", 16, 16, 1), ("conv", 8, 96, 1), ("conv", 12, 68, 2),
+    ("conv", 6, 36, 1), ("deconv", 12, 4 * 8, 1), ("deconv", 8, 4 * 24, 1),
+    ("deconv", 16, 4 * 32, 1)])
+def test_kernel_ps_store_addressing(case):
+    """B4: the same mirror with ``ps=2`` writes every output once, where the
+    twins put them (``pixel_shuffle`` of ``conv3x3_ref`` / of
+    ``deconv4x4_ref``): the v1 head (16 -> 16), channel groups that split
+    the output (96, 68: two groups of whole 2x2 blocks; a deconv's 4 x 24
+    and 4 x 32 phase channels: one phase row a group), at widths that leave
+    a ragged last tile and, at stride 2, odd output sizes."""
+    kind, cin, cout, stride = case
+    rng = np.random.default_rng(cin * cout)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
+    for h, w in ((10, 40), (9, 27)):
+        x = t(rng.normal(size=(2, cin, h, w)))
+        if kind == "deconv":
+            raw = t(rng.normal(size=(cin, cout // 4, 4, 4)) * 0.3)
+            weight = CV.deconv_phase_weights(raw)
+        else:
+            weight = t(rng.normal(size=(cout, cin, 3, 3)) * 0.3)
+        y = CV.conv3x3_ref([x], weight, stride=stride)
+        if kind == "deconv":
+            got = mirror_store(y, cout // 4, 16, ps=2)
+            want = CV.deconv4x4_ref(x, weight, ps=2)
+        else:
+            got = mirror_store(y, 0, 16, ps=2)
+            want = CV.conv3x3_ref([x], weight, stride=stride, ps=2)
+        assert got.shape == want.shape
         assert not torch.isnan(got).any()
         assert torch.equal(got, want)
 

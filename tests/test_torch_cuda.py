@@ -438,7 +438,7 @@ def test_conv_kernel_matches_twin(cuda_device, parts, cout, stride, act, h,
                      weight_tc=packed)
     want = CV.conv3x3_ref(xs, weight, bias, slope, stride=stride, act=act)
     torch.cuda.synchronize()
-    assert CV.LAUNCHES == {"conv3x3": 1}
+    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0}
     scale = CV.conv3x3_ref([x.float().abs() for x in xs],
                            weight.float().abs(), stride=stride)
     check(got, want, f32_rel=1e-5, scale=scale)
@@ -469,9 +469,90 @@ def test_deconv_kernel_matches_twin(cuda_device, cin, co, h, w, dtype):
                        phase_weight_tc=CV.pack_weight_tc(w3))
     want = CV.deconv4x4_ref(x, w3, bias, slope, act=CV.ACT_PRELU)
     torch.cuda.synchronize()
-    assert CV.LAUNCHES == {"conv3x3": 1}
+    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0}
     check(got, want, f32_rel=1e-5,
           scale=CV.deconv4x4_ref(x.float().abs(), w3.float().abs()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,cin,cout,stride,h,w", [
+    ("conv", 16, 16, 1, 272, 480),   # the v1 fusionnet head, B=2
+    ("conv", 8, 96, 1, 33, 61),      # two groups of whole 2x2 blocks
+    ("conv", 12, 68, 2, 22, 38),     # 17 blocks over two groups, stride 2
+    ("conv", 5, 12, 1, 9, 13),       # odd sizes, unaligned rows
+    ("deconv", 64, 96, 1, 68, 120),  # v4.6 block tail: 24 channels, 2 groups
+    ("deconv", 12, 32, 1, 17, 30),
+])
+def test_conv_ps_kernel(cuda_device, kind, cin, cout, stride, h, w, dtype):
+    """B4 (``ps=2``): one launch counted as ``conv3x3_ps``, bit for bit the
+    plain kernel's output shuffled (only the write addresses move), and
+    against its twin at the conv bar."""
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    rng = np.random.default_rng(cin + cout)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
+        device=cuda_device, dtype=dt).contiguous()
+    x = t(rng.normal(size=(2, cin, h, w)), dtype)
+    if kind == "deconv":
+        weight = CV.deconv_phase_weights(torch.from_numpy(rng.normal(
+            size=(cin, cout // 4, 4, 4)).astype(np.float32) * 0.3))
+        weight = weight.to(device=cuda_device, dtype=dtype).contiguous()
+    else:
+        weight = t(rng.normal(size=(cout, cin, 3, 3)) * 0.2, dtype)
+    bias = t(rng.normal(size=cout), torch.float32)
+    slope = t(rng.uniform(0, 0.5, cout), torch.float32)
+    packed = CV.pack_weight_tc(weight)
+    if kind == "deconv":
+        def run(ps):
+            return CV.deconv4x4(x, weight, bias, slope, act=CV.ACT_PRELU,
+                                phase_weight_tc=packed, ps=ps)
+        want = CV.deconv4x4_ref(x, weight, bias, slope, act=CV.ACT_PRELU,
+                                ps=2)
+        scale = CV.deconv4x4_ref(x.float().abs(), weight.float().abs(),
+                                 ps=2)
+    else:
+        def run(ps):
+            return CV.conv3x3([x], weight, bias, slope, stride=stride,
+                              act=CV.ACT_PRELU, weight_tc=packed, ps=ps)
+        want = CV.conv3x3_ref([x], weight, bias, slope, stride=stride,
+                              act=CV.ACT_PRELU, ps=2)
+        scale = CV.conv3x3_ref([x.float().abs()], weight.float().abs(),
+                               stride=stride, ps=2)
+    CV.reset_launches()
+    got = run(2)
+    torch.cuda.synchronize()
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 1}
+    assert torch.equal(got, F.pixel_shuffle(run(1), 2))
+    check(got, want, f32_rel=1e-5, scale=scale)
+
+
+def test_v1_f32_matches_cpu(cuda_device, tmp_path, monkeypatch):
+    """The v1 reconstruction with every admissible conv site on the kernels
+    (size gates lowered to 0; the ConvPS head on B4): the card matches the
+    CPU session, launches as the plan says."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.models.v1_arch import write_v1_params
+    from rife_tpu_torch.ops import conv as CV
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
+    monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
+    d = write_v1_params(tmp_path, (8, 8, 8, 4))
+    a, b = frames(64, 96)
+    ts = np.full(2, 0.5, np.float32)
+    want = RIFE(str(d), device="cpu").process_batch(a, b, ts)
+    sess = RIFE(str(d), device=cuda_device, dtype=torch.float32)
+    W.reset_launches()
+    CV.reset_launches()
+    got = sess.process_batch(a, b, ts)
+    counts = {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
+    assert counts == kernel_sites(sess, 64, 96)
+    # the three flownet block heads and the fusionnet's head, at mini widths
+    assert counts["conv3x3_ps"] == 4
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
 
 
 def test_failed_launch_raises(cuda_device):
@@ -487,7 +568,7 @@ def test_failed_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):
         CV.conv3x3([torch.zeros(4100, 1, 2, 2, device=cuda_device)],
                    torch.zeros(256, 1, 3, 3, device=cuda_device))
-    assert CV.LAUNCHES == {"conv3x3": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0}
     bf = dict(device=cuda_device, dtype=torch.bfloat16)
     w = torch.zeros(64, 512, 3, 3, **bf)
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -495,7 +576,7 @@ def test_failed_launch_raises(cuda_device):
                    weight_tc=CV.pack_weight_tc(w))
     with pytest.raises(ValueError, match="weight_tc"):
         CV.conv3x3([torch.zeros(1, 512, 8, 8, **bf)], w)
-    assert CV.LAUNCHES == {"conv3x3": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0}
 
 
 def test_failed_build_raises_on_cuda(cuda_device, tmp_path, monkeypatch):
@@ -538,7 +619,8 @@ def test_v23_slice_f32_matches_cpu(cuda_device, v23_dir, monkeypatch):
     W.reset_launches()
     CV.reset_launches()
     got = sess.process_batch(a, b, ts)
-    assert {**launched(), **CV.LAUNCHES} == kernel_sites(sess, 64, 96)
+    assert {**launched(), **{k: v for k, v in CV.LAUNCHES.items() if v}} \
+        == kernel_sites(sess, 64, 96)
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
 

@@ -1,5 +1,6 @@
 """The port's copies of the JAX package's framework-free layers against the
-originals, on the mini v4.6- and v2.3-architecture reconstructions: the
+originals, on the mini v4.6-, v2.3- and v1-architecture reconstructions
+(``rife``, ``rife-anime``): the
 parser (``graph/param.py``, ``graph/ir.py``), the weight synthesis
 (``graph/weights.py``, both modes), the rewrite chains of the sessions
 (``graph/rewrite.py``, with and without ``fuse_ds2``), the zoo loader
@@ -17,12 +18,14 @@ from rife_tpu.ops import common as jcommon
 from rife_tpu_torch.engine import session as session_mod
 from rife_tpu_torch.graph import param, weights
 from rife_tpu_torch.models import zoo
+from rife_tpu_torch.models.v1_arch import write_v1_params
 from rife_tpu_torch.models.v23_arch import write_v23_params
 from rife_tpu_torch.models.v46_arch import write_flownet_param
 from rife_tpu_torch.ops import common
 
-NETS = [("rife-v4.6", "flownet"), ("rife-v2.3", "flownet"),
-        ("rife-v2.3", "contextnet"), ("rife-v2.3", "fusionnet")]
+THREE = ("flownet", "contextnet", "fusionnet")
+NETS = [("rife-v4.6", "flownet")] + [
+    (m, n) for m in ("rife-v2.3", "rife", "rife-anime") for n in THREE]
 NET_IDS = [f"{m}/{n}" for m, n in NETS]
 REWRITES = ("fuse_concat_into_convs", "fuse_pixelshuffle_into_convs",
             "fuse_prelu_activations", "fuse_quarter_downscaled_warps",
@@ -34,7 +37,9 @@ REWRITES = ("fuse_concat_into_convs", "fuse_pixelshuffle_into_convs",
 def model_dirs(tmp_path_factory):
     root = tmp_path_factory.mktemp("graph")
     return {"rife-v4.6": write_flownet_param(root, (16, 16, 16, 16)),
-            "rife-v2.3": write_v23_params(root, (8, 8, 8, 8, 4))}
+            "rife-v2.3": write_v23_params(root, (8, 8, 8, 8, 4)),
+            **{v: write_v1_params(root, (8, 8, 8, 4), v)
+               for v in ("rife", "rife-anime")}}
 
 
 def node_tuples(graph):
@@ -152,7 +157,8 @@ def test_rewrite_chain_matches(model_dirs, model, net, fuse_ds2,
     assert got_g.type_histogram() == want_g.type_histogram()
 
 
-@pytest.mark.parametrize("model", ["rife-v4.6", "rife-v2.3"])
+@pytest.mark.parametrize("model", ["rife-v4.6", "rife-v2.3", "rife",
+                                   "rife-anime"])
 def test_load_model_matches(model_dirs, model):
     got = zoo.load_model(str(model_dirs[model]))
     want = jzoo.load_model(str(model_dirs[model]))
@@ -190,6 +196,11 @@ def test_layer_helpers_match(model_dirs, model, net):
             n = len(node.tops)
             assert list(common.slice_sizes(node, 12, n)) == \
                 list(jcommon.slice_sizes(node, 12, n))
-    for name in ("BINARY_ADD", "BINARY_SUB", "BINARY_MUL", "BINARY_RSUB",
-                 "ACT_NONE", "ACT_RELU", "ACT_LEAKY", "ACT_PRELU_CH"):
+    for name in ("BINARY_ADD", "BINARY_SUB", "BINARY_MUL", "BINARY_DIV",
+                 "BINARY_MAX", "BINARY_MIN", "BINARY_POW", "BINARY_RSUB",
+                 "BINARY_RDIV", "UNARY_ABS", "UNARY_NEG", "UNARY_FLOOR",
+                 "UNARY_CEIL", "UNARY_SQUARE", "UNARY_SQRT", "UNARY_RSQRT",
+                 "UNARY_EXP", "UNARY_LOG", "UNARY_SIN", "UNARY_COS",
+                 "UNARY_TAN", "ACT_NONE", "ACT_RELU", "ACT_LEAKY", "ACT_CLIP",
+                 "ACT_SIGMOID", "ACT_PRELU_CH"):
         assert getattr(common, name) == getattr(jcommon, name)

@@ -106,12 +106,13 @@ def warp_calls(dtype):
 
 def conv_calls(dtype):
     """(counter, C function, thunk) for conv3x3 (one and three parts) and
-    deconv4x4."""
+    deconv4x4, each also in its PixelShuffle form (B4, ``conv3x3_ps``)."""
     c_fn = "rife_conv3x3_tc" if dtype == torch.bfloat16 else "rife_conv3x3"
     parts = [on_card(2, c, 8, 12, dtype=dtype) for c in (3, 3, 4)]
     weight = on_card(16, 10, 3, 3, dtype=dtype)
     bias, slope = on_card(16), on_card(16)
     phase = on_card(4 * 6, 10, 3, 3, dtype=dtype)
+    phase8 = on_card(4 * 8, 10, 3, 3, dtype=dtype)
     return [
         ("conv3x3", c_fn, lambda: CV.conv3x3(
             parts, weight, bias, slope, stride=2, act=CV.ACT_PRELU,
@@ -122,6 +123,12 @@ def conv_calls(dtype):
         ("conv3x3", c_fn, lambda: CV.deconv4x4(
             torch.cat(parts, 1), phase, on_card(24), act=CV.ACT_RELU,
             phase_weight_tc=CV.pack_weight_tc(phase))),
+        ("conv3x3_ps", c_fn, lambda: CV.conv3x3(
+            [torch.cat(parts, 1)], weight, bias, slope, act=CV.ACT_PRELU,
+            weight_tc=CV.pack_weight_tc(weight), ps=2)),
+        ("conv3x3_ps", c_fn, lambda: CV.deconv4x4(
+            torch.cat(parts, 1), phase8, on_card(32),
+            phase_weight_tc=CV.pack_weight_tc(phase8), ps=2)),
     ]
 
 

@@ -75,23 +75,30 @@ def rand(*shape, scale=1.0):
 
 
 def test_op_table_kinds():
+    """Every kind of ``jax_ops.OP_TABLE`` but ``rife.WarpCatConv`` (the
+    TPU's ``RIFE_TPU_FUSE_WARPCAT`` rewrite, not ported: ROADMAP "Not to
+    port")."""
     assert set(torch_ops.OP_TABLE) == {
-        "Convolution", "ConvolutionCat", "Deconvolution", "rife.DeconvPS",
+        "Convolution", "ConvolutionCat", "Deconvolution", "rife.ConvPS",
+        "rife.DeconvPS", "InnerProduct", "Pooling", "UnaryOp",
         "PixelShuffle", "Interp", "Concat", "Crop", "Slice", "Split",
         "BinaryOp", "Eltwise", "Sigmoid", "rife.Warp", "rife.WarpDs4",
         "rife.WarpPair", "rife.WarpDs4Pair", "rife.WarpDs2",
         "rife.RenderBlend", "PReLU", "ReLU", "Clip",
     }
-    assert set(torch_ops.OP_TABLE) <= set(jax_ops.OP_TABLE)
+    assert set(jax_ops.OP_TABLE) - set(torch_ops.OP_TABLE) == {
+        "rife.WarpCatConv"}
 
 
 def test_unported_kind_raises():
+    """A kind outside the table (``rife.WarpCatConv``, left out on purpose)
+    raises in ``Executor.run``."""
     g = SimpleNamespace(
         nodes=[LayerNode("Input", "x", [], ["x"]),
-               LayerNode("Pooling", "r", ["x"], ["y"])],
+               LayerNode("rife.WarpCatConv", "r", ["x"], ["y"])],
         required_nodes=lambda outs, given: [0, 1])
     ex = Executor(g, torch_ops.OP_TABLE, {})
-    with pytest.raises(NotImplementedError, match="Pooling"):
+    with pytest.raises(NotImplementedError, match="rife.WarpCatConv"):
         ex.run({"x": torch.zeros(1, 1, 2, 2)}, ["y"])
 
 

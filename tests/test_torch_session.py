@@ -124,18 +124,24 @@ def test_t_shortcuts_and_single_pair(model_dir):
 
 
 def test_unported_modes_raise(model_dir):
-    """TTA runs on the v4 family and ``-u`` is ignored there, as in the JAX
-    session (tests/test_torch_tta_session.py; UHD on v2:
-    tests/test_torch_uhd_session.py); the v1 family is still unported."""
+    """Nothing is refused any more: TTA runs on the v4 family and ``-u`` is
+    ignored there, as in the JAX session (tests/test_torch_tta_session.py;
+    UHD on v2: tests/test_torch_uhd_session.py), and a v1 dir builds, in
+    every mode (the v1 family against rife_tpu:
+    tests/test_torch_v1_session.py)."""
+    from rife_tpu_torch.models.v1_arch import write_v1_params
+
     for mode in ({"tta_mode": True}, {"tta_temporal_mode": True},
                  {"uhd_mode": True}):
         RIFE(str(model_dir), device="cpu", **mode)
-    v1 = model_dir.parent / "rife-anime"
-    v1.mkdir(exist_ok=True)
-    for net in ("flownet", "contextnet", "fusionnet"):
-        (v1 / f"{net}.param").write_text((model_dir / "flownet.param").read_text())
-    with pytest.raises(NotImplementedError, match="A9"):
-        RIFE(str(v1), device="cpu")
+    v1 = write_v1_params(model_dir.parent, (8, 8, 8, 4), "rife-anime")
+    for mode in ({}, {"tta_mode": True, "tta_temporal_mode": True},
+                 {"uhd_mode": True}):
+        sess = RIFE(str(v1), device="cpu", **mode)
+        assert sess.model.family == "v1"
+        assert sess.uhd_mode == bool(mode.get("uhd_mode"))
+        assert set(sess.executors) == {"flownet", "contextnet", "fusionnet"}
+        assert all(ex.ctx["planar_convs"] for ex in sess.executors.values())
 
 
 def test_cuda_without_card_raises(model_dir, monkeypatch):

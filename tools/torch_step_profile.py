@@ -1,15 +1,22 @@
 """Where the time of one rife_tpu_torch step goes on the card.
 
-Runs the 2x bf16 step of the v4.6-architecture graph or the
-v2.3-architecture graphs (in-repo reconstructions, synthetic weights) at
-1080p, B=8 by default, plain or with ``--fuse-ds2`` and ``--tta`` (``-x -z``),
-or with ``--uhd`` (``-u``, v2.3, on 2160x3840 frames), under
-``torch.profiler`` and prints: the step's wall time, the summed device time
-of its kernels, the device's idle share over the profiled window, and the
-kernels ranked by device time.  Needs one NVIDIA GPU.
+Runs the 2x bf16 step of the v4.6-architecture graph, the v2.3-architecture
+graphs or the v1-architecture ``rife`` graphs (in-repo reconstructions,
+synthetic weights) at 1080p, B=8 by default, plain or with ``--fuse-ds2``
+and ``--tta`` (``-x -z``), or with ``--uhd`` (``-u``, v2.3 and v1, on
+2160x3840 frames), under ``torch.profiler`` and prints: the step's wall
+time, the summed device time of its kernels, the device's idle share over
+the profiled window, and the kernels ranked by device time.  ``--by-op``
+profiles the same steps once more with every graph node under a
+``record_function`` of its layer kind (a ``BinaryOp`` or ``PReLU`` on a
+(B,C) vector is marked "SE", the v1 gates' scale and slope) and prints the
+device time per layer kind: the labels cost host time, so that run's wall
+time is not the step's, and only kernels that PyTorch launches are
+attributed (the ``csrc/`` kernels, launched through ctypes, are not: read
+them in the kernel table).  Needs one NVIDIA GPU.
 
-Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3]
-     [--fuse-ds2] [--tta] [--uhd] [--table PATH]
+Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3|v1]
+     [--fuse-ds2] [--tta] [--uhd] [--by-op] [--table PATH]
 """
 
 from __future__ import annotations
@@ -30,12 +37,15 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("batch", type=int, nargs="?", default=8)
     ap.add_argument("steps", type=int, nargs="?", default=3)
-    ap.add_argument("--model", choices=("v4.6", "v2.3"), default="v4.6")
+    ap.add_argument("--model", choices=("v4.6", "v2.3", "v1"),
+                    default="v4.6")
     ap.add_argument("--fuse-ds2", action="store_true",
                     help="RIFE(..., fuse_ds2=True)")
     ap.add_argument("--tta", action="store_true", help="-x -z TTA")
     ap.add_argument("--uhd", action="store_true",
-                    help="-u on 2160x3840 frames (v2.3)")
+                    help="-u on 2160x3840 frames (v2.3, v1)")
+    ap.add_argument("--by-op", action="store_true",
+                    help="also the device time per layer kind")
     ap.add_argument("--table", type=Path, help="write the full table here")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -51,12 +61,16 @@ def main() -> int:
         from rife_tpu_torch.models.v23_arch import LABEL, write_v23_params
 
         model_dir = write_v23_params(models)
+    elif args.model == "v1":
+        from rife_tpu_torch.models.v1_arch import LABEL, write_v1_params
+
+        model_dir = write_v1_params(models)
     else:
         from rife_tpu_torch.models.v46_arch import LABEL, write_flownet_param
 
         model_dir = write_flownet_param(models)
-    if args.uhd and args.model != "v2.3":
-        ap.error("--uhd runs the v2 family only (v4 ignores -u)")
+    if args.uhd and args.model == "v4.6":
+        ap.error("--uhd runs the v2 and v1 families only (v4 ignores -u)")
     sess = RIFE(str(model_dir), device="cuda", fuse_ds2=args.fuse_ds2,
                 tta_mode=args.tta, tta_temporal_mode=args.tta,
                 uhd_mode=args.uhd)
@@ -69,14 +83,17 @@ def main() -> int:
         sess.process_batch_device(f0, f1, ts)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            sess.process_batch_device(f0, f1, ts)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+    def run_steps():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                sess.process_batch_device(f0, f1, ts)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        return prof.key_averages(), wall
 
-    events = prof.key_averages()
+    events, wall = run_steps()
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in dev)
     step_ms = wall / args.steps * 1e3
@@ -92,11 +109,53 @@ def main() -> int:
         print(f"{e.self_device_time_total / 1e3 / args.steps:9.3f} ms/step "
               f"{100 * e.self_device_time_total / busy_us:5.1f}%  "
               f"x{e.count // args.steps:<4d} {e.key[:90]}")
+    if args.by_op:
+        by_op(sess, run_steps, args.steps, busy_us)
     if args.table:
         args.table.parent.mkdir(parents=True, exist_ok=True)
         args.table.write_text(events.table(sort_by="self_cuda_time_total",
                                            row_limit=200))
     return 0
+
+
+def by_op(sess, run_steps, steps, busy_us):
+    """Profile the steps with every node under ``record_function("op::<layer
+    kind>")`` and print the device time under each label, a step's."""
+    from torch.profiler import record_function
+
+    def labelled(kind, fn):
+        def op(node, inputs, w, ctx):
+            label = kind
+            if kind in ("BinaryOp", "PReLU") and any(
+                    getattr(x, "ndim", 0) == 2 for x in inputs):
+                label += " (SE)"
+            with record_function(f"op::{label}"):
+                return fn(node, inputs, w, ctx)
+        return op
+
+    tables = {}
+    for name, ex in sess.executors.items():
+        tables[name] = ex.op_table
+        ex.op_table = {k: labelled(k, fn) for k, fn in ex.op_table.items()}
+    try:
+        events, _ = run_steps()
+    finally:
+        for name, ex in sess.executors.items():
+            ex.op_table = tables[name]
+    # the host-side ranges: their device time is that of the kernels
+    # launched inside them (each range also appears as a device-side
+    # annotation, which is left out)
+    ops = sorted((e for e in events if e.key.startswith("op::") and
+                  e.device_type == torch.autograd.DeviceType.CPU),
+                 key=lambda e: e.device_time_total, reverse=True)
+    total = sum(e.device_time_total for e in ops)
+    print(f"by layer kind: {total / 1e3 / steps:.3f} ms/step of device time "
+          f"under the graph's nodes (pre/post and the pipelines' own ops "
+          f"outside them)")
+    for e in ops:
+        print(f"{e.device_time_total / 1e3 / steps:9.3f} ms/step "
+              f"{100 * e.device_time_total / busy_us:5.1f}%  "
+              f"x{e.count // steps:<5d} {e.key[4:]}")
 
 
 if __name__ == "__main__":
