@@ -9,7 +9,8 @@ reconstructions, synthetic weights), each plain, with ``fuse_ds2`` and with
 ``-x -z`` TTA plus ``fuse_ds2``, v2.3 with UHD ``-u`` at 4K, and the
 v1-architecture ``rife`` graphs plain, with ``-x -z`` and with ``-u``; then
 three CLI paths through the load -> proc -> save runner and the image
-codecs:
+codecs; then the multi-device layer (batch and height sharding, ``-g all``)
+on the one card named several times:
 
 1. prints the card (nvidia-smi name, power limit) and the torch/CUDA versions;
 2. builds the CUDA kernels from ``rife_tpu_torch/csrc`` (one nvcc per source,
@@ -90,7 +91,27 @@ codecs:
    ``-g 0,0 -j 1:4,4:2`` over the first 8 frames, byte for byte equal to
    one session at ``-j 1:4:2``; and the rows of B=1, 3, 4 and 7 steps
    against the same rows of a B=8 step (why the runner pads);
-11. prints the kernels' JSON line (launches of each path's counted run), the
+11. runs ``parallel/sharding.py`` (bf16 on cuda:0; ``phase_sharded``): the
+   sharded warp (``warp_spatial``: the gather kernel at global absolute
+   positions over the whole source, a quarter of a 1080p frame's rows, u8
+   and float modes) against its twin and, bit for bit, against the rows of
+   the unsharded kernel, timed beside its bound (the source rows its
+   positions reach read once) and ``grid_sample``; batch
+   sharding over ``make_mesh()`` (every visible card) at v4.6 1080p B=8
+   equal to the session byte for byte, and over [cuda:0, cuda:0] equal to
+   a session at B=4 per shard; height sharding over four shards of cuda:0
+   (v4.6 1080p B=2, v2.3 ``-u`` 4K B=1, v1 1080p B=1, v4.6 on a 2x2 mesh
+   at B=4) against the unsharded session at the shard batch, >= 99.9%
+   exact, u8 max |d| <= 1 in f32, PSNR > 50 dB in bf16 (cuDNN sums a
+   shard's rows otherwise than the whole frame's, as it does another B's; a
+   probe prints the share of conv values that differ, and ``node_witness``
+   runs each node unsharded and sharded on the same inputs: every node on
+   a hand kernel or on PyTorch's own ops bit for bit, the cuDNN conv nodes
+   that differ counted); ``-g all`` in directory mode equal to ``-g 0``;
+   each run's launches equal to ``ShardedRIFE.kernel_sites`` (no fused
+   warp when height-sharded), its step time beside the unsharded step's
+   and its halo and all-gather bytes;
+12. prints the kernels' JSON line (launches of each path's counted run), the
    nvidia-smi line and, last, the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
@@ -148,6 +169,28 @@ V23_PSNR_ITEMS = 2
 # v2.3 contextnet feature warps of a 1080p B=8 step: (C, H, W) at batch 16
 FEAT_SHAPES = [(32, 272, 480), (64, 136, 240), (128, 68, 120), (256, 34, 60)]
 FEAT_EXTRA = [(2, 7, 68, 120), (2, 32, 33, 61)]  # odd C, unaligned size
+# height sharding on four shards of cuda:0: (path, model, modes, mesh,
+# (B, H, W)); and the sharded warp's cases: (kernel, u8, (B, C, H, W)),
+# a quarter of the rows sampled over the whole source
+SHARDED_CASES = [
+    ("height 1x4 v4.6", "v4.6", {}, (1, 4), (2, 1080, 1920)),
+    ("height 1x4 v2.3 -u", "v2.3", {"uhd_mode": True}, (1, 4),
+     (1, 2160, 3840)),
+    ("height 1x4 v1", "v1", {}, (1, 4), (1, 1080, 1920)),
+    ("height 2x2 v4.6", "v4.6", {}, (2, 2), (4, 1080, 1920)),
+]
+SHARDED_WARPS = [("warp_u8", True, (2, 3, 1088, 1920)),
+                 ("warp_feat", False, (2, 32, 544, 960))]
+# bf16 height sharding against the unsharded session: cuDNN picks its
+# algorithms by shape, so a shard's convs round otherwise than the whole
+# frame's (``cudnn_rows_probe``; ``node_witness`` finds every difference
+# starting at a cuDNN conv node), as a change of the step's B does, and a
+# bf16 flow one ulp apart (1/8 px at 16-32 px) moves a few samples across
+# the frames' texture: a few pixels differ by up to tens of levels.  bf16
+# is held to >= 99.9% exact and the repo's fidelity target, PSNR > 50 dB
+# (ROADMAP); the f32 runs (TF32 off), where such differences stay under
+# the u8 rounding, keep the bar of every other path: u8 max |d| <= 1.
+SHARDED_BF16_PSNR_DB = 50.0
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core rate
 WARP_SRC = "rife_tpu/ops/warp_pallas.py"
@@ -158,7 +201,7 @@ KERNELS = {
     "warp_pair": ("warp.cu", f"{WARP_SRC}:1274", []),
     "warp_render": ("warp.cu", f"{WARP_SRC}:1304", []),
     "warp_feat": ("warp.cu", f"{WARP_SRC}:146", [f"{WARP_SRC}:515"]),
-    "warp_u8": ("warp.cu", f"{WARP_SRC}:2321", []),
+    "warp_u8": ("warp.cu", f"{WARP_SRC}:2321", [f"{WARP_SRC}:2901"]),
     "warp_ds2": ("warp.cu", f"{WARP_SRC}:2052", [f"{WARP_SRC}:1899"]),
     "conv3x3": ("conv.cu", f"{CONV_SRC}:309",
                 [f"{CONV_SRC}:485", f"{CONV_SRC}:97", f"{CONV_SRC}:190"]),
@@ -1303,6 +1346,387 @@ def phase_cli(device, v46_dir, v23_dir, rng, card):
     return runs
 
 
+def sharded_warp_kernels(device, rng, report):
+    """(d) The sharded warp (``warp_spatial``: the gather kernel at global
+    absolute positions over the whole source, Ho = a shard's rows) against
+    its twin at one shard's shape: a quarter of a 1080p frame's rows
+    (rows 272-544 of 1088) over the whole source, u8 mode (C=3, the
+    height-sharded v4.6 run's B=2) and float mode (C=32 at the 544x960
+    level, B=2, a quarter of its rows), bf16 and f32.  Timed in bf16
+    beside the bound (positions read, output written, and the source rows
+    the positions reach read once: ``reached_rows``) and, for the float
+    mode, ``grid_sample`` on the same rows."""
+    from rife_tpu_torch.ops import warp as W
+
+    for name, u8, (b, c, h, w) in SHARDED_WARPS:
+        for dtype in (torch.bfloat16, torch.float32):
+            if u8:
+                img, flow, _, _, _ = kernel_inputs(rng, (b, h, w), dtype,
+                                                   device)
+            else:
+                img = torch.randn(b, c, h, w, device=device).to(dtype)
+                flow = smooth_flow(rng, b, h, w, dtype, device, shift=6.0)
+            s, e = h // 4, h // 2
+            rows = flow[:, :, s:e].contiguous()
+            pos = torch.stack(W._grid_positions(rows, s), dim=1)
+            timed = dtype == torch.bfloat16
+            out_bytes = b * c * (e - s) * w * img.element_size()
+            src_rows = reached_rows(pos, h)
+            bound = bound_ms(src_rows * c * w * img.element_size()
+                             + nbytes(pos) + out_bytes)
+            library = None
+            if not u8:
+                grid = sample_grid(flow)[:, s:e].contiguous()
+                library = lambda: torch.nn.functional.grid_sample(  # noqa
+                    img, grid, mode="bilinear", padding_mode="border",
+                    align_corners=True)
+            sub = {}
+            kfn = W.warp_u8 if u8 else W.warp_feat
+            tfn = W.warp_u8_ref if u8 else W.warp_feat_ref
+            ms, lib = check_pair(
+                sub, name, lambda i, p: kfn(i, p, abs_pos=True),
+                lambda i, p: tfn(i, p, abs_pos=True), (img, pos), dtype,
+                f"sharded, rows {s}-{e} of B,C,H,W={(b, c, h, w)} (the "
+                f"positions reach {src_rows} of the {b * h} source rows)",
+                timed,
+                bound=bound, library=library)
+            if timed:
+                whole_fn = time_ms(lambda: W.warp_spatial(img, rows, s,
+                                                          u8=u8))
+                sub[name]["with_positions_ms"] = whole_fn
+                print(f"  warp_spatial {name} (the positions computed, "
+                      f"then the kernel): {whole_fn:.4f} ms", flush=True)
+            whole = (W.warp_u8 if u8 else W.warp_feat)(img, flow)
+            torch.cuda.synchronize()
+            require(torch.equal(W.warp_spatial(img, rows, s, u8=u8),
+                                whole[:, :, s:e]),
+                    f"{name}: the shard's rows differ from the unsharded "
+                    f"kernel's")
+            if timed:
+                report[name]["spatial"] = {
+                    "shape": [b, c, e - s, w], "source_rows_read": src_rows,
+                    **sub[name]}
+            del img, flow, rows, whole, pos
+    torch.cuda.empty_cache()
+
+
+def reached_rows(pos: torch.Tensor, h: int) -> int:
+    """Source rows that absolute positions (B,2,Ho,W) reach, summed over
+    the batch: per item, floor(min y) to floor(max y) + 1 (the bilinear
+    taps' rows), clamped to the frame's h rows."""
+    sy = pos[:, 1].float()
+    lo = sy.amin(dim=(1, 2)).floor().clamp(0, h - 1)
+    hi = (sy.amax(dim=(1, 2)).floor() + 1).clamp(0, h - 1)
+    return int((hi - lo + 1).sum())
+
+
+def cudnn_rows_probe(device):
+    """Whether cuDNN gives a quarter of a frame's rows, convolved on a
+    window of them (the shard's rows and its halo), what it gives them in
+    the whole frame: per shape of the sharded paths, the share of values
+    that differ (bf16, and f32 with TF32 off).  Prints only: it says why
+    the bf16 height-sharded runs differ from the unsharded session."""
+    F = torch.nn.functional
+    g = torch.Generator().manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, c, h, w, st in ((2, 64, 272, 480, 1), (2, 192, 136, 240, 1),
+                               (2, 128, 272, 480, 2), (2, 16, 1088, 1920, 1),
+                               (2, 96, 68, 120, 1)):
+            x = torch.randn(b, c, h, w, generator=g).to(device, dtype)
+            wt = (torch.randn(c, c, 3, 3, generator=g)
+                  / (3 * c ** 0.5)).to(device, dtype)
+            q = h // 4
+            full = F.conv2d(x, wt, None, stride=st, padding=1)
+            win = F.conv2d(x[:, :, q - 2:2 * q + 1], wt, None, stride=st,
+                           padding=1)
+            d = (full[:, :, q // st:2 * q // st].float()
+                 - win[:, :, 2 // st:2 // st + q // st].float()).abs()
+            print(f"cuDNN {str(dtype)[6:]} conv B,C,H,W={(b, c, h, w)} s{st}: "
+                  f"rows {q}-{2 * q} on a window against the whole frame: "
+                  f"{float((d > 0).float().mean()):.6f} of values differ, max "
+                  f"|d| {float(d.max()):.3g}", flush=True)
+            del x, wt, full, win, d
+    torch.cuda.empty_cache()
+
+
+class _Recorder:
+    """An executor that keeps the first run of its net (inputs, outputs,
+    ctx) and runs it."""
+
+    def __init__(self, ex, calls, net):
+        self._ex, self._calls, self._net = ex, calls, net
+
+    def __getattr__(self, name):
+        return getattr(self._ex, name)
+
+    def run(self, inputs, outputs, ctx=None):
+        self._calls.setdefault(self._net, (dict(inputs), list(outputs), ctx))
+        return self._ex.run(inputs, outputs, ctx)
+
+
+CONV_KINDS = ("Convolution", "ConvolutionCat", "rife.ConvPS",
+              "Deconvolution", "rife.DeconvPS")
+
+
+def node_witness(path, plain, sharded, f0, f1, ts, device):
+    """Where a height-sharded bf16 step starts to differ from the
+    unsharded one: each net's first run in a step of ``plain`` is kept,
+    then node by node the node is run unsharded and over ``sharded``'s
+    first mesh row on the same inputs (the unsharded run's blobs), so each
+    node is compared on its own.  Nodes are sorted by route: a hand kernel
+    launched (``conv3x3``, ``conv3x3_ps``, a warp), a cuDNN conv, the
+    pooling (f32 partial sums per shard by design), or other (PyTorch
+    elementwise, resize, concat, the SE vectors).  Fails unless every
+    hand-kernel node and every other node is bit for bit.  Returns
+    {route: (nodes, nodes that differ, max |d|)}."""
+    calls = {}
+    recs = {net: _Recorder(ex, calls, net)
+            for net, ex in plain.executors.items()}
+    tally = {}
+    first = {}
+    with torch.inference_mode():
+        plain.forward(plain.frames_on(f0, device),
+                      plain.frames_on(f1, device),
+                      plain.timesteps_of(f0, f1, ts), recs, plain.weights)
+        for net, (inputs, outputs, ctx) in calls.items():
+            ex, sp = plain.executors[net], sharded.executors[0][net]
+            # both sides emit NCHW (the sharded render has no planar form)
+            ctx = {k: v for k, v in (ctx or {}).items()
+                   if k != "planar_outputs"}
+            tall = {k: v for k, v in inputs.items()
+                    if isinstance(v, torch.Tensor) and v.dim() == 4}
+            blobs = dict(inputs)
+            for idx in ex.graph.required_nodes(outputs, list(inputs)):
+                node = ex.graph.nodes[idx]
+                if node.type == "Input" or all(t in blobs
+                                               for t in node.tops):
+                    continue
+                feed = {**tall, **{b: blobs[b] for b in node.bottoms}}
+                reset_counts()
+                want = ex.run(feed, node.tops, ctx)
+                hand = read_counts()
+                got = sp.run(feed, node.tops, ctx)
+                blobs.update(zip(node.tops, want))
+                route = ("hand kernel" if hand else
+                         "cuDNN conv" if node.type in CONV_KINDS else
+                         "pooling" if node.type == "Pooling" else "other")
+                d = max(float((a.float() - b.float()).abs().max())
+                        if a.shape == b.shape else float("inf")
+                        for a, b in zip(want, got))
+                t = tally.setdefault(route, [0, 0, 0.0])
+                t[0] += 1
+                if d > 0:
+                    t[1] += 1
+                    t[2] = max(t[2], d)
+                    first.setdefault(net, f"{node.type} {node.name} "
+                                          f"({route}, max |d| {d:.3g})")
+            del blobs
+    torch.cuda.empty_cache()
+    print(f"sharded (c) {path} node by node (bf16, each node on the "
+          f"unsharded run's inputs): " + "; ".join(
+              f"{r}: {n} nodes, {k} differ (max |d| {m:.3g})"
+              for r, (n, k, m) in sorted(tally.items()))
+          + f"; first difference per net: {first or 'none'}", flush=True)
+    for route in ("hand kernel", "other"):
+        require(tally.get(route, [0, 0])[1] == 0, f"sharded (c) {path}: a "
+                f"{route} node differs from the unsharded run on the same "
+                f"inputs")
+    return {r: tuple(t) for r, t in tally.items()}
+
+
+def step_ms(fn, steps=3) -> float:
+    """Host ms of one synchronised step, after one warm-up step."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def phase_sharded(device, v46_dir, v23_dir, v1_dir, rng, report, card):
+    """``parallel/sharding.py`` on the card (bf16): (a) batch sharding over
+    ``make_mesh()``, every visible card, v4.6 1080p B=8 equal to
+    ``RIFE.process_batch_device`` byte for byte; (b) over [cuda:0, cuda:0]
+    at B=8 equal to a session at B=4 per shard; (c) height sharding over
+    four shards of cuda:0 against the unsharded session at the shard
+    batch, >= 99.9% exact: v4.6 1080p B=2, v2.3 -u 2160x3840 B=1, v1 1080p
+    B=1, v4.6 on a 2x2 mesh at B=4, each in bf16 (PSNR above
+    SHARDED_BF16_PSNR_DB, and on the 1x4 meshes ``node_witness``) and in
+    f32 (u8 max |d| <= 1; ``cudnn_rows_probe`` shows why the two differ);
+    (d) the sharded warp against its twin (``sharded_warp_kernels``); (e) ``-g all`` in directory mode equal to
+    ``-g 0`` at the same -j; (f) each sharded
+    step's time beside the unsharded step's on the card, with the halo and
+    all-gather bytes of a step.  Every run counts its launches (set to 0
+    just before, read just after) and holds them to
+    ``ShardedRIFE.kernel_sites``.  Returns {path: (launches, frames/s)}."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.graph import spatial as SP
+    from rife_tpu_torch.parallel.sharding import (ShardedRIFE, make_mesh,
+                                                  make_mesh_2d)
+
+    sharded_warp_kernels(device, rng, report)
+    cudnn_rows_probe(device)
+    runs = {}
+    sessions = {}
+
+    def session(mdir, **modes):
+        key = (str(mdir), tuple(sorted(modes.items())))
+        if key not in sessions:
+            sessions[key] = RIFE(str(mdir), device=device, **modes)
+        return sessions[key]
+
+    def counted(path, sharded, f0, f1, ts):
+        h, w = f0.shape[1], f0.shape[2]
+        reset_counts()
+        SP.reset_traffic()
+        out = sharded.process_batch(f0, f1, ts)
+        launches = read_counts()
+        traffic = dict(SP.TRAFFIC)
+        want = sharded.kernel_sites(h, w)
+        print(f"sharded {path}: launches {launches}, plan {want}; per step "
+              f"halo {traffic['halo']} B, all-gather {traffic['gather']} B",
+              flush=True)
+        require(launches == want, f"sharded {path}: launches differ from "
+                f"the plan (ShardedRIFE.kernel_sites)")
+        return out, launches
+
+    def timed(path, sharded, plain, f0, f1, ts, per):
+        d0, d1 = (torch.from_numpy(f).to(device) for f in (f0, f1))
+        b = len(f0)
+        t_sh = step_ms(lambda: sharded.process_batch_device(d0, d1, ts))
+        t_pl = step_ms(lambda: [plain.process_batch_device(
+            d0[i:i + per], d1[i:i + per], ts[i:i + per])
+            for i in range(0, b, per)])
+        print(f"sharded {path} step: {t_sh:.3f} ms sharded, {t_pl:.3f} ms "
+              f"unsharded at B={per} x {b // per} on the same card (host "
+              f"clock, synchronised); card {card}", flush=True)
+        return b / t_sh * 1e3
+
+    # (a) every visible card, batch axis only
+    sess = session(v46_dir)
+    b, h, w = BENCH
+    f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
+    ts = np.full(b, 0.5, np.float32)
+    mesh = make_mesh()
+    sharded = ShardedRIFE(sess, mesh)
+    out, launches = counted("batch make_mesh v4.6", sharded, f0, f1, ts)
+    n = len(mesh.devices)
+    want = np.concatenate([sess.process_batch_device(
+        f0[i:i + b // n], f1[i:i + b // n], ts[i:i + b // n]).cpu().numpy()
+        for i in range(0, b, b // n)])
+    require(np.array_equal(out, want), "batch sharding over make_mesh() "
+            "differs from the session")
+    print(f"sharded (a) batch over {n} card(s), v4.6 {h}x{w} B={b}: equal to "
+          f"RIFE.process_batch_device byte for byte", flush=True)
+    runs["sharded batch make_mesh v4.6"] = (launches, timed(
+        "batch make_mesh v4.6", sharded, sess, f0, f1, ts, b // n))
+
+    # (b) one card named twice
+    sharded = ShardedRIFE(sess, make_mesh([device, device]))
+    out, launches = counted("batch 2x cuda:0 v4.6", sharded, f0, f1, ts)
+    want = np.concatenate([sess.process_batch(f0[i:i + 4], f1[i:i + 4],
+                                              ts[i:i + 4]) for i in (0, 4)])
+    require(np.array_equal(out, want), "batch sharding over [cuda:0, "
+            "cuda:0] differs from a session at B=4")
+    print("sharded (b) batch over [cuda:0, cuda:0] B=8: equal to a session "
+          "at B=4 per shard byte for byte", flush=True)
+    runs["sharded batch 2x cuda:0 v4.6"] = (launches, timed(
+        "batch 2x cuda:0 v4.6", sharded, sess, f0, f1, ts, 4))
+
+    # (c) height sharding on four shards of cuda:0
+    dirs = {"v4.6": v46_dir, "v2.3": v23_dir, "v1": v1_dir}
+    for path, model, modes, (nd, ns), (b, h, w) in SHARDED_CASES:
+        plain = session(dirs[model], **modes)
+        f0, f1 = smooth_frames(rng, b, h, w)
+        ts = np.full(b, 0.5, np.float32)
+        sharded = ShardedRIFE(plain, make_mesh_2d(nd, ns, [device] * 4),
+                              height_axis="spatial")
+        out, launches = counted(path, sharded, f0, f1, ts)
+        per = b // nd
+
+        def unsharded(sess, n=per):
+            return np.concatenate([sess.process_batch(
+                f0[i:i + n], f1[i:i + n], ts[i:i + n])
+                for i in range(0, b, n)])
+
+        want = unsharded(plain)
+        # the same session's rows at another B, for scale
+        other = np.concatenate([f0[:per]] * 2), np.concatenate([f1[:per]] * 2)
+        rows_b = plain.process_batch(*other, np.full(2 * per, 0.5,
+                                                     np.float32))[:per]
+        d = np.abs(rows_b.astype(np.int16) - want[:per])
+        print(f"sharded (c) {path}: the unsharded session's rows at B="
+              f"{2 * per} against B={per}: u8 max |d| {int(d.max())}, exact "
+              f"{float((d == 0).mean()):.6f}", flush=True)
+        what = (f"sharded (c) {path} {h}x{w} B={b} vs the unsharded session "
+                f"at B={per} (bf16 on the card)")
+        d = np.abs(out.astype(np.int16) - want)
+        exact, p = float((d == 0).mean()), psnr(out, want)
+        print(f"{what}: u8 max |d| {int(d.max())}, exact {exact:.6f}, PSNR "
+              f"{p:.2f} dB", flush=True)
+        require(out.shape == want.shape and exact >= 0.999
+                and p > SHARDED_BF16_PSNR_DB, f"{what}: tolerance")
+        if nd == 1:
+            node_witness(path, plain, sharded, f0[:per], f1[:per],
+                         ts[:per], device)
+        runs[f"sharded {path}"] = (launches, timed(path, sharded, plain, f0,
+                                                   f1, ts, per))
+        del sharded
+        card32 = RIFE(str(dirs[model]), device=device, dtype=torch.float32,
+                      **modes)
+        got32 = ShardedRIFE(card32, make_mesh_2d(nd, ns, [device] * 4),
+                            height_axis="spatial").process_batch(f0, f1, ts)
+        assert_u8_close(got32, unsharded(card32),
+                        f"sharded (c) {path} {h}x{w} B={b} vs the unsharded "
+                        f"session at B={per} (f32 on the card, TF32 off)")
+        del card32, got32
+        torch.cuda.empty_cache()
+    sessions.clear()
+    torch.cuda.empty_cache()
+    runs.update(cli_g_all(v46_dir, rng, card))
+    return runs
+
+
+def cli_g_all(v46_dir, rng, card):
+    """(e) ``-g all`` (one ShardedRIFE over every visible card, -j proc per
+    card) in directory mode against ``-g 0`` at the same -j, byte for
+    byte."""
+    import os
+    import shutil
+
+    from rife_tpu_torch.io.image import decode_image, encode_image
+
+    work = ROOT / "rife_tpu_torch" / "_build" / "cli_g_all"
+    shutil.rmtree(work, ignore_errors=True)
+    ind = work / "in"
+    ind.mkdir(parents=True)
+    for k, f in enumerate(moving_frames(rng, CLI_MULTI, *CLI_SIZE)):
+        encode_image(ind / f"{k:04d}.png", f)
+    got, runs = {}, {}
+    jobs = f"1:{CLI_MULTI_BATCH}:2"
+    for g in ("all", "0"):
+        o = work / f"out_{g}"
+        o.mkdir()
+        launches, dt, summary = run_cli(
+            ["-i", str(ind), "-o", str(o), "-m", str(v46_dir), "-g", g,
+             "-j", jobs], f"-g {g}")
+        got[g] = {n: decode_image(o / n) for n in sorted(os.listdir(o))}
+        print(f"sharded (e) cli -g {g} -j {jobs}: {len(got[g])} outputs in "
+              f"{dt:.3f} s; launches {launches}; stages: {summary}; card "
+              f"{card}", flush=True)
+        runs[f"cli -g {g}"] = (launches, (CLI_MULTI - 1) / dt)
+    require(len(got["all"]) == 2 * CLI_MULTI
+            and got["all"].keys() == got["0"].keys()
+            and all(np.array_equal(got["all"][k], got["0"][k])
+                    for k in got["all"]),
+            "-g all differs from -g 0")
+    print("sharded (e): -g all equals -g 0 byte for byte", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"cli -g all": runs["cli -g all"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one "
@@ -1394,6 +1818,8 @@ def main() -> int:
     runs["v1 -u"] = (check_on_card("v1 -u", v1_dir, device, rng, UHD_CHECK,
                                    uhd_mode=True), None)
     runs.update(phase_cli(device, v46_dir, v23_dir, rng, card))
+    runs.update(phase_sharded(device, v46_dir, v23_dir, v1_dir, rng, report,
+                              card))
     by_path = {path: launches for path, (launches, _) in runs.items()}
 
     kernels = []

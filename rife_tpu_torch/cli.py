@@ -17,9 +17,9 @@ Usage mirrors the reference's src/main.cpp:102-121:
   -m model-path        model dir or zoo name (default rife-v2.3)
   -g device-id         CUDA device to use (default 0; -1 = cpu); comma list
                        for independent per-device sessions over one queue;
-                       'all' (one sharded session) is not ported
+                       'all' = one session batch-sharded over every card
   -j load:proc:save    thread counts (default 1:2:2); proc = device batch size here,
-                       comma list per device
+                       comma list per device (with -g all: per card)
   -x                   spatial TTA
   -z                   temporal TTA
   -u                   UHD mode
@@ -49,6 +49,19 @@ from typing import List, Optional
 
 def parse_int_list(text: str) -> List[int]:
     return [int(t) for t in text.split(",") if t != ""]
+
+
+def mesh_devices():
+    """The devices ``-g all`` shards over: every visible card."""
+    import torch
+
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def mesh_batch(jobs_proc: List[int], n_devices: int) -> int:
+    """The step batch of ``-g all``: the ``-j`` proc value (default 2) is
+    the per-card batch, as in ``rife_tpu.cli``."""
+    return (jobs_proc[0] if jobs_proc else 2) * n_devices
 
 
 def parse_jobs(text: str):
@@ -251,22 +264,24 @@ def main(argv: Optional[List[str]] = None) -> int:
     from .engine.session import RIFE
     from .io.runner import PipelineRunner, Task
 
-    if args.deviceids.strip().lower() == "all":
-        print("-g all (one session sharded over every card) is not ported; "
-              "give a comma list of device ids", file=sys.stderr)
-        return 255
+    mesh_mode = args.deviceids.strip().lower() == "all"
     try:
-        device_ids = parse_int_list(args.deviceids) if args.deviceids else [0]
+        device_ids = (
+            [] if mesh_mode else
+            parse_int_list(args.deviceids) if args.deviceids else [0]
+        )
     except ValueError:
         print("invalid device", file=sys.stderr)
         return 255
-    if len(jobs_proc) not in (0, 1, len(device_ids)):
+    n_sessions = 1 if mesh_mode else len(device_ids)
+    if len(jobs_proc) not in (0, 1, n_sessions):
         print("invalid jobs_proc thread count argument", file=sys.stderr)
         return 255
-    if len(jobs_proc) == 1:
+    if len(jobs_proc) == 1 and not mesh_mode:
         jobs_proc = jobs_proc * len(device_ids)
 
-    if any(did != -1 for did in device_ids) and not torch.cuda.is_available():
+    if (mesh_mode or any(did != -1 for did in device_ids)) and \
+            not torch.cuda.is_available():
         print("no CUDA device: torch.cuda.is_available() is False; pass "
               "-g -1 to run on the CPU", file=sys.stderr)
         return 255
@@ -280,12 +295,22 @@ def main(argv: Optional[List[str]] = None) -> int:
             print("invalid device", file=sys.stderr)
             return 255
 
-    # the session's default dtype: bf16 on the card, f32 on the CPU
+    def make_session(device):
+        # the session's default dtype: bf16 on the card, f32 on the CPU
+        return RIFE(args.model, device=device, tta_mode=args.tta_mode,
+                    tta_temporal_mode=args.tta_temporal,
+                    uhd_mode=args.uhd_mode)
+
     t0 = time.perf_counter()
-    sessions = [RIFE(args.model, device=device, tta_mode=args.tta_mode,
-                     tta_temporal_mode=args.tta_temporal,
-                     uhd_mode=args.uhd_mode)
-                for device in devices]
+    if mesh_mode:
+        # one session, the frame-pair batch sharded over every card
+        from .parallel.sharding import ShardedRIFE, make_mesh
+
+        mesh = make_mesh(mesh_devices())
+        sessions = [ShardedRIFE(make_session(mesh.devices[0][0]), mesh)]
+        jobs_proc = [mesh_batch(jobs_proc, len(mesh.devices))]
+    else:
+        sessions = [make_session(device) for device in devices]
     if args.verbose:
         print(f"sessions: {len(sessions)} built in "
               f"{time.perf_counter() - t0:.2f}s")

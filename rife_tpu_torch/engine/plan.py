@@ -13,8 +13,12 @@ flownet, walked at its halved geometry), ``conv3x3`` where the gates of
 ``rife.ConvPS`` / ``rife.DeconvPS`` site (on its pre-shuffle channels).
 Rank-2 blobs (the v1 SE gates: global ``Pooling``, ``InnerProduct``) have
 shape (C,).  The result, launches per kernel per step, does not depend on
-the batch size.  ``chip_smoke.py`` holds the card's launch counters to it,
-and times ``conv3x3`` / ``conv3x3_ps`` at each site ``conv_sites`` lists.
+the batch size.  ``n_spatial`` > 1 counts a step height-sharded over that
+many shards (``graph/spatial.py``): each non-empty shard runs each net,
+its warps all unfused into single warps (``ShardedRIFE.kernel_sites``
+multiplies by the data shards).  ``chip_smoke.py`` holds the card's launch
+counters to it, and times ``conv3x3`` / ``conv3x3_ps`` at each site
+``conv_sites`` lists.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 from collections import Counter
 from typing import Dict, List, Tuple
 
+from ..graph.spatial import shard_bounds
 from ..ops import common as C
 from ..ops import conv as CV
 from .pipelines import CONTEXT_FEATS, V4_TAPS
@@ -47,13 +52,16 @@ def _cut(shape: Shape, axis: int, start: int, end: int) -> Shape:
     return tuple(dims)
 
 
-def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
+def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
+          sharded=False):
     """(kernel launches, blob shapes, conv sites) of one run of ``ex`` with
     ``run_ctx`` over its ctx, as ``Executor.run`` merges them; a conv site
     is (kernel, site), the site the kernel call's (part channels, cout,
     stride, activation code, input H, W, deconv): a deconv site's cout
     counts its four output phases, a PixelShuffle site's the channels
-    before the shuffle."""
+    before the shuffle.  ``sharded``: the launches of one shard of a
+    height-sharded run, where no warp fuses (single warps at absolute
+    positions)."""
     g, ctx = ex.graph, {**ex.ctx, **(run_ctx or {})}
     u8 = () if ctx.get("no_u8_warp") else ctx.get("u8_image_blobs", ())
     planar = ctx.get("planar_convs", False)
@@ -65,7 +73,7 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
         sites["warp_u8" if shape[0] == 3 and blob in u8 else "warp_feat"] += 1
 
     def pair_ok(node, a, b, fa, fb):
-        return (a == b and fa == fb and a[0] == 3
+        return (not sharded and a == b and fa == fb and a[0] == 3
                 and node.bottoms[0] in u8 and node.bottoms[2] in u8)
 
     for idx in g.required_nodes(outputs, list(inputs)):
@@ -159,8 +167,8 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
             single(node.bottoms[0], x)
             outs = [(x[0], x[1] // 4, x[2] // 4)]
         elif kind == "rife.WarpDs2":
-            if x[0] == 3 and node.bottoms[0] in u8 and not (x[1] % 2
-                                                             or x[2] % 2):
+            if (not sharded and x[0] == 3 and node.bottoms[0] in u8
+                    and not (x[1] % 2 or x[2] % 2)):
                 sites["warp_ds2"] += 1
             else:
                 single(node.bottoms[0], x)
@@ -192,7 +200,7 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None):
     return sites, shapes, convs
 
 
-def _plan(session, h: int, w: int):
+def _plan(session, h: int, w: int, n_spatial: int = 1):
     """(launches per kernel, [(batch factor, site), ...] of ``conv3x3``,
     the same of ``conv3x3_ps``) of one step.  The batch factor is the run's
     batch over the session's: 4 for a spatial-TTA view group, for v2 twice
@@ -213,7 +221,11 @@ def _plan(session, h: int, w: int):
     convs: Dict[str, List[tuple]] = {"conv3x3": [], "conv3x3_ps": []}
 
     def walk(net, inputs, outputs, factor, runs=1, run_ctx=None):
-        more, shapes, found = _walk(ex[net], inputs, outputs, run_ctx)
+        more, shapes, found = _walk(ex[net], inputs, outputs, run_ctx,
+                                    sharded=n_spatial > 1)
+        if n_spatial > 1:  # every non-empty shard runs the net
+            rows = max(s[1] for s in inputs.values() if len(s) == 3)
+            runs *= len(shard_bounds(rows, n_spatial)) - 1
         for _ in range(runs):
             sites.update(more)
             for name, site in found:
@@ -253,9 +265,14 @@ def _plan(session, h: int, w: int):
     return sites, convs["conv3x3"], convs["conv3x3_ps"]
 
 
-def kernel_sites(session, h: int, w: int) -> Dict[str, int]:
-    """Kernel launches of one ``process_batch`` step on (h, w) frames."""
-    return dict(_plan(session, h, w)[0])
+def kernel_sites(session, h: int, w: int,
+                 n_spatial: int = 1) -> Dict[str, int]:
+    """Kernel launches of one ``process_batch`` step of a ``RIFE`` session
+    on (h, w) frames, or (``n_spatial`` > 1) of one data shard's step
+    height-sharded over ``n_spatial`` shards: each non-empty shard runs each
+    net, its warps single warps at absolute positions and its conv sites
+    gated on the whole blob."""
+    return dict(_plan(session, h, w, n_spatial)[0])
 
 
 def conv_sites(session, h: int, w: int,

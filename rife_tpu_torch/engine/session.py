@@ -141,20 +141,18 @@ class RIFE:
         """The flownet's executor (the v4 family's only net)."""
         return self.executors["flownet"]
 
-    def _frames(self, x) -> torch.Tensor:
+    @staticmethod
+    def frames_on(x, device) -> torch.Tensor:
+        """(B,H,W,3) u8 frames (numpy or a tensor) on ``device``."""
         t = torch.as_tensor(x)
         if t.dtype != torch.uint8 or t.dim() != 4 or t.shape[-1] != 3:
             raise ValueError(f"frames must be (B,H,W,3) uint8, got "
                              f"{tuple(t.shape)} {t.dtype}")
-        return t.to(self.device, non_blocking=True)
+        return t.to(device, non_blocking=True)
 
-    def process_batch_device(self, in0, in1, timesteps) -> torch.Tensor:
-        """(B,H,W,3) u8 pairs (numpy or tensors) + (B,) timesteps -> the u8
-        result as a tensor on the session's device, without synchronising.
-
-        The v1 and v2 families interpolate the midpoint only: any timestep
-        other than 0.5 raises ``ValueError`` (``rife_tpu``
-        session.py:471-477)."""
+    def timesteps_of(self, in0, in1, timesteps) -> np.ndarray:
+        """The (B,) f32 timesteps of a batch, after the checks of
+        ``process_batch_device``."""
         if tuple(in0.shape) != tuple(in1.shape):
             raise ValueError(f"frame shape mismatch: {tuple(in0.shape)} vs "
                              f"{tuple(in1.shape)}")
@@ -164,22 +162,43 @@ class RIFE:
             raise ValueError(
                 f"{self.model.name} ({self.model.family}) only supports "
                 f"timestep 0.5; got {np.unique(ts)}")
-        a, b = self._frames(in0), self._frames(in1)
+        return ts
+
+    def process_batch_device(self, in0, in1, timesteps) -> torch.Tensor:
+        """(B,H,W,3) u8 pairs (numpy or tensors) + (B,) timesteps -> the u8
+        result as a tensor on the session's device, without synchronising.
+
+        The v1 and v2 families interpolate the midpoint only: any timestep
+        other than 0.5 raises ``ValueError`` (``rife_tpu``
+        session.py:471-477)."""
+        ts = self.timesteps_of(in0, in1, timesteps)
+        return self.forward(self.frames_on(in0, self.device),
+                            self.frames_on(in1, self.device), ts,
+                            self.executors, self.weights)
+
+    def forward(self, a: torch.Tensor, b: torch.Tensor, ts: np.ndarray,
+                executors, weights) -> torch.Tensor:
+        """One step of the session's pipeline on u8 frames ``a``, ``b``
+        (already on their device) with ``executors`` (an ``Executor`` or a
+        ``graph/spatial.py`` ``SpatialExecutor`` per net) and ``weights``
+        (the prepared weights per net on the frames' device):
+        ``parallel/sharding.py`` runs each shard through it."""
         h, w = a.shape[1], a.shape[2]
+        device = a.device
         modes = {"tta": self.tta_mode, "temporal": self.tta_temporal_mode}
         with torch.inference_mode():
             if self.model.family == "v4":
                 t = torch.from_numpy(ts)
-                if self.device.type == "cuda":
+                if device.type == "cuda":
                     # from pageable memory the copy would wait for the
                     # stream's earlier work; pinned, the step is queued
                     # behind the batch still running
                     t = t.pin_memory()
                 return pipelines.forward_v4(
-                    self.executor, self.weights["flownet"], a, b,
-                    t.to(self.device, non_blocking=True), pad_to(h),
-                    pad_to(w), self.dtype, **modes)
-            return pipelines.forward_v1v2(self.executors, self.weights,
+                    executors["flownet"], weights["flownet"], a, b,
+                    t.to(device, non_blocking=True), pad_to(h), pad_to(w),
+                    self.dtype, **modes)
+            return pipelines.forward_v1v2(executors, weights,
                                           self.model.family, a, b, pad_to(h),
                                           pad_to(w), self.dtype,
                                           uhd=self.uhd_mode, **modes)

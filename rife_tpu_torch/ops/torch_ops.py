@@ -155,6 +155,14 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
 # layer table
 # ---------------------------------------------------------------------------
 
+def _site_rows(x: torch.Tensor, ctx) -> int:
+    """The rows the site gates of ``ops/conv.py`` see: the input's, or under
+    height sharding the whole blob's (ctx ``site_rows``, set per node by
+    ``graph/spatial.py``), so that a site takes the same path on every
+    shard as it does unsharded."""
+    return int(ctx.get("site_rows", x.shape[2]))
+
+
 def _conv_act(node, y, p):
     act, params = C.activation_of(node)
     return apply_activation(y, act, params, p.get("slope"))
@@ -180,7 +188,7 @@ def _op_convolution(node, inputs, w, ctx):
     x = inputs[0]
     cout, cin = p["weight"].shape[0], p["weight"].shape[1]
     if ctx.get("planar_convs") and CV.conv_wants_planar(
-            node, x.shape[2], x.shape[3], cin, cout, ctx):
+            node, _site_rows(x, ctx), x.shape[3], cin, cout, ctx):
         return [_conv_kernel(node, [x], p, stride)]
     y = F.conv2d(x, p["weight"], p["bias"], stride=stride, padding=pad,
                  dilation=dilation)
@@ -195,7 +203,7 @@ def _op_convolution_cat(node, inputs, w, ctx):
     _, _, _, stride, _, _ = C.conv_hyperparams(node)
     p = ctx["w"][node.name]
     cout, cin = p["weight"].shape[0], p["weight"].shape[1]
-    h, wid = inputs[0].shape[2], inputs[0].shape[3]
+    h, wid = _site_rows(inputs[0], ctx), inputs[0].shape[3]
     if ctx.get("planar_convs") and CV.cat_conv_wants_planar(
             node, h, wid, cin, cout, len(inputs), ctx):
         parts = list(inputs)
@@ -212,7 +220,7 @@ def _op_deconvolution(node, inputs, w, ctx):
     x = inputs[0]
     cin, cout = p["weight"].shape[0], p["weight"].shape[1]
     if ctx.get("planar_convs") and CV.deconv_wants_planar(
-            node, x.shape[2], x.shape[3], cin, cout, ctx):
+            node, _site_rows(x, ctx), x.shape[3], cin, cout, ctx):
         act, alpha = _kernel_act(node)
         return [CV.deconv4x4(x.contiguous(), p["phase_weight"],
                              p["phase_bias_f32"], p.get("phase_slope_f32"),
@@ -233,7 +241,7 @@ def _op_conv_ps(node, inputs, w, ctx):
     p = ctx["w"][node.name]
     x = inputs[0]
     r = int(node.p(25, 2))
-    h, wid = x.shape[2], x.shape[3]
+    h, wid = _site_rows(x, ctx), x.shape[3]
     if node.type == "rife.DeconvPS":
         cin, cout = p["weight"].shape[0], p["weight"].shape[1]
         if ctx.get("planar_convs") and CV.deconv_wants_planar(

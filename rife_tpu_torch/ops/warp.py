@@ -23,6 +23,10 @@ computes, from the math (the kernels themselves live in
 * ``warp_ds2``       <- ``_warp_pallas_u8_ds2_impl`` ->
   ``_warp_kernel_u8_slab_ds2`` (K3): the u8-origin warp of a frame copy
   fused with the exact half-pixel 1/2 downsample (``rife.WarpDs2``)
+* ``warp_spatial``   <- ``warp_pallas_spatial`` (the height-sharded warp):
+  one shard's output rows sampled from the whole (gathered) source at
+  global absolute positions, through ``warp_u8`` or ``warp_feat`` with
+  Ho = the shard's rows (its launches count under those two wrappers)
 
 The shared u8-origin warp, per output pixel and channel:
 
@@ -133,11 +137,13 @@ def _warp_acc(img: torch.Tensor, sx: torch.Tensor, sy: torch.Tensor,
     return acc + g(y1, x1) * w11
 
 
-def _grid_positions(flow: torch.Tensor):
-    """Raw flow (B,2,H,W) -> absolute f32 positions (sx, sy)."""
+def _grid_positions(flow: torch.Tensor, row0: int = 0):
+    """Raw flow (B,2,H,W) -> absolute f32 positions (sx, sy); ``row0`` is
+    the global row of the flow's first row."""
     h, w = flow.shape[2], flow.shape[3]
     gx = torch.arange(w, device=flow.device, dtype=torch.float32)
-    gy = torch.arange(h, device=flow.device, dtype=torch.float32)
+    gy = torch.arange(row0, row0 + h, device=flow.device,
+                      dtype=torch.float32)
     sx = gx.reshape(1, 1, w) + flow[:, 0].float()
     sy = gy.reshape(1, h, 1) + flow[:, 1].float()
     return sx, sy
@@ -199,15 +205,16 @@ def _half_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
     return pairs.select(dim + 1, 0) * half + pairs.select(dim + 1, 1) * half
 
 
-def ds4_positions(flow: torch.Tensor) -> torch.Tensor:
+def ds4_positions(flow: torch.Tensor, row0: int = 0) -> torch.Tensor:
     """Raw flow (B,2,H,W) -> absolute f32 positions (B,2,H/2,W/2) of the
     taps a 1/4 half-pixel downsample reads: tap + flow(tap)
-    (``jax_ops._ds4_abs_positions``)."""
+    (``jax_ops._ds4_abs_positions``).  ``row0``: the global row of the
+    flow's first row (a multiple of 4), for one shard's rows."""
     h, w = flow.shape[2], flow.shape[3]
     ry, rx = _ds4_taps(h, flow.device), _ds4_taps(w, flow.device)
     fc = flow.index_select(2, ry).index_select(3, rx).float()
     sx = rx.float().reshape(1, 1, -1) + fc[:, 0]
-    sy = ry.float().reshape(1, -1, 1) + fc[:, 1]
+    sy = (ry + row0).float().reshape(1, -1, 1) + fc[:, 1]
     return torch.stack([sx, sy], dim=1)
 
 
@@ -397,3 +404,22 @@ def warp_u8(img, flow, abs_pos: bool = False):
     if img.device.type == "cpu":
         return warp_u8_ref(img, flow, abs_pos)
     return _warp_single("warp_u8", img, flow, abs_pos, u8=True)
+
+
+def warp_spatial(full, flow, row0: int, *, u8: bool, ds4: bool = False):
+    """The height-sharded warp (``warp_pallas_spatial``): ``full`` is the
+    whole source image (B,C,H,W) on the shard's device, ``flow`` the
+    shard's rows [row0, row0 + h) of the raw flow (B,2,h,W) on the image's
+    grid.  Positions are f32 global coordinates (x + flow_x, row + flow_y),
+    the kernel samples only the shard's rows (Ho = h; ``warp_u8`` for a
+    u8-origin frame copy, ``warp_feat`` otherwise), so its rows equal those
+    of the unsharded warp bit for bit.  ``ds4``: the fused warp + 1/4
+    downsample unfused, as under sharding in ``rife_tpu``: the taps' absolute
+    positions, then the two 0.5/0.5 passes (row0 a multiple of 4) ->
+    (B,C,h/4,W/4)."""
+    if ds4:
+        pos = ds4_positions(flow, row0)
+    else:
+        pos = torch.stack(_grid_positions(flow, row0), dim=1)
+    out = (warp_u8 if u8 else warp_feat)(full, pos, abs_pos=True)
+    return half_sum2(out) if ds4 else out

@@ -4,7 +4,7 @@ synthetic weights: the same parsing and planning, the same return codes on
 invalid input, and outputs within the session tests' f32 bar (u8 max |d| <=
 1 and >= 99.9% exact: on the CPU ``rife_tpu`` warps with XLA's ``warp_at``
 and the port with the twins of the Pallas kernels).  Then the port's own
-rules: without a card only ``-g -1`` runs, ``-g all`` is refused, a v1 dir
+rules: without a card only ``-g -1`` runs (``-g all`` included), a v1 dir
 runs, and ``RIFE_TORCH_RANK``/``RIFE_TORCH_WORLD`` split the outputs.
 """
 
@@ -231,7 +231,7 @@ def test_without_a_card_only_the_cpu_runs(tmp_path, models, no_card, gflag,
     assert cli.main(argv + (["-g", gflag] if gflag else [])) == 255
     assert os.listdir(outd) == []
     err = capsys.readouterr().err
-    assert ("not ported" if gflag == "all" else "-g -1") in err
+    assert "-g -1" in err
 
 
 def test_invalid_device_ids(tmp_path, models, monkeypatch, capsys):

@@ -781,3 +781,120 @@ def test_runner_pinned_path_matches_sync_path(cuda_device, model_dir,
     # every step ran at its session's B; every slot was released once
     assert launched and set(launched) == {3}
     assert len(poisoned) == len(launched)
+
+
+# --- parallel/sharding.py on the card ----------------------------------------
+
+def _counts():
+    from rife_tpu_torch.ops import conv as CV
+
+    return {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items() if v}
+
+
+def _reset():
+    from rife_tpu_torch.ops import conv as CV
+
+    W.reset_launches()
+    CV.reset_launches()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("u8,ds4", [(True, False), (False, False),
+                                    (True, True), (False, True)])
+def test_sharded_warp_rows_equal_the_unsharded_kernel(cuda_device, u8, ds4,
+                                                      dtype):
+    """warp_spatial (the gather kernel at absolute positions, Ho = a
+    shard's rows) gives each shard's rows of the unsharded kernel's output
+    bit for bit, one launch of the kernel a shard."""
+    b, h, w = 2, 128, 200
+    ia, fa, _, _, _ = inputs(11, b, h, w, dtype, cuda_device)
+    img = ia if u8 else ia.repeat(1, 3, 1, 1).contiguous()  # C = 9
+    ref = W.warp_u8 if u8 else W.warp_feat
+    whole = (W.half_sum2(ref(img, W.ds4_positions(fa), abs_pos=True))
+             if ds4 else ref(img, fa))
+    W.reset_launches()
+    k = 4 if ds4 else 1
+    for s, e in ((0, 32), (32, 96), (96, 128)):
+        got = W.warp_spatial(img, fa[:, :, s:e], s, u8=u8, ds4=ds4)
+        assert torch.equal(got, whole[:, :, s // k:e // k])
+    name = "warp_u8" if u8 else "warp_feat"
+    assert W.LAUNCHES[name] == 3
+
+
+def test_batch_sharding_on_one_card_twice(cuda_device, model_dir):
+    """[cuda:0, cuda:0] at B=4 equals a session at B=2 per shard, bit for
+    bit, and launches the plan's kernels once per data shard."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.parallel.sharding import ShardedRIFE, make_mesh
+
+    dev = torch.device("cuda", 0)
+    sess = RIFE(str(model_dir), device=dev)
+    sharded = ShardedRIFE(sess, make_mesh([dev, dev]))
+    a = np.concatenate([frames(64, 96, seed=s)[0] for s in (1, 2)])
+    b = np.concatenate([frames(64, 96, seed=s)[1] for s in (1, 2)])
+    ts = np.linspace(0.2, 0.8, 4).astype(np.float32)
+    _reset()
+    got = sharded.process_batch(a, b, ts)
+    assert _counts() == sharded.kernel_sites(64, 96)
+    want = np.concatenate([sess.process_batch(a[:2], b[:2], ts[:2]),
+                           sess.process_batch(a[2:], b[2:], ts[2:])])
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.parametrize("mesh", [(1, 4), (2, 2)])
+def test_height_sharding_on_one_card(cuda_device, v23_dir, monkeypatch,
+                                     mesh):
+    """v2.3, f32, every admissible conv site on conv3x3: four shards of
+    cuda:0 against the unsharded session on the card (u8 <= 1, >= 99.9%
+    exact), launches as the plan says, no fused warp."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.ops import conv as CV
+    from rife_tpu_torch.parallel.sharding import ShardedRIFE, make_mesh_2d
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
+    monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
+    dev = torch.device("cuda", 0)
+    sess = RIFE(str(v23_dir), device=dev, dtype=torch.float32)
+    sharded = ShardedRIFE(sess, make_mesh_2d(*mesh, [dev] * 4),
+                          height_axis="spatial")
+    a, b = frames(128, 96)
+    ts = np.full(2, 0.5, np.float32)
+    _reset()
+    got = sharded.process_batch(a, b, ts)
+    counts = _counts()
+    assert counts == sharded.kernel_sites(128, 96)
+    assert counts["warp_u8"] > 0 and not {
+        "warp_pair", "warp_ds4_pair", "warp_render", "warp_ds2"} & set(counts)
+    per = 2 // mesh[0]
+    want = np.concatenate([sess.process_batch(a[i:i + per], b[i:i + per],
+                                              ts[:per])
+                           for i in range(0, 2, per)])
+    diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+    assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
+
+
+def test_sharding_over_two_cards(cuda_device, model_dir):
+    """Two cards: batch sharding equals a session at the shard batch on
+    cuda:0, and height sharding over [cuda:0, cuda:1] equals the same mesh
+    on cuda:0 named twice, bit for bit (the same kernels on the same
+    rows)."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.parallel.sharding import (ShardedRIFE, make_mesh,
+                                                  make_mesh_2d)
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two GPUs")
+    two = [torch.device("cuda", 0), torch.device("cuda", 1)]
+    sess = RIFE(str(model_dir), device=two[0])
+    a, b = frames(128, 96, seed=4)
+    ts = np.full(2, 0.5, np.float32)
+    got = ShardedRIFE(sess, make_mesh(two)).process_batch(a, b, ts)
+    want = np.concatenate([sess.process_batch(a[i:i + 1], b[i:i + 1],
+                                              ts[:1]) for i in range(2)])
+    assert np.array_equal(got, want)
+    spread = ShardedRIFE(sess, make_mesh_2d(1, 2, two),
+                         height_axis="spatial").process_batch(a, b, ts)
+    one = ShardedRIFE(sess, make_mesh_2d(1, 2, [two[0]] * 2),
+                      height_axis="spatial").process_batch(a, b, ts)
+    assert np.array_equal(spread, one)

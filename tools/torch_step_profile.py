@@ -13,10 +13,16 @@ profiles the same steps once more with every graph node under a
 device time per layer kind: the labels cost host time, so that run's wall
 time is not the step's, and only kernels that PyTorch launches are
 attributed (the ``csrc/`` kernels, launched through ctypes, are not: read
-them in the kernel table).  Needs one NVIDIA GPU.
+them in the kernel table).  ``--mesh DxS`` runs the step through
+``parallel/sharding.py``'s ``ShardedRIFE`` over a D x S mesh of cuda:0
+named D*S times (batch sharding over D, height sharding over S when S > 1),
+the cost of the sharded paths' halos, gathers and extra launches on one
+card; under it ``--by-op`` labels the nodes that a shard runs through the
+layer table (the sharded warps and resizes are left out).  Needs one
+NVIDIA GPU.
 
 Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3|v1]
-     [--fuse-ds2] [--tta] [--uhd] [--by-op] [--table PATH]
+     [--fuse-ds2] [--tta] [--uhd] [--mesh DxS] [--by-op] [--table PATH]
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ def main() -> int:
     ap.add_argument("--tta", action="store_true", help="-x -z TTA")
     ap.add_argument("--uhd", action="store_true",
                     help="-u on 2160x3840 frames (v2.3, v1)")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxS: batch over D, height over S, all on cuda:0")
     ap.add_argument("--by-op", action="store_true",
                     help="also the device time per layer kind")
     ap.add_argument("--table", type=Path, help="write the full table here")
@@ -74,13 +82,22 @@ def main() -> int:
     sess = RIFE(str(model_dir), device="cuda", fuse_ds2=args.fuse_ds2,
                 tta_mode=args.tta, tta_temporal_mode=args.tta,
                 uhd_mode=args.uhd)
+    step = sess
+    n_data, n_sp = (int(v) for v in args.mesh.lower().split("x"))
+    if n_data * n_sp > 1:
+        from rife_tpu_torch.parallel.sharding import (ShardedRIFE,
+                                                      make_mesh_2d)
+
+        mesh = make_mesh_2d(n_data, n_sp, [sess.device] * (n_data * n_sp))
+        step = ShardedRIFE(sess, mesh, batch_axis="data",
+                           height_axis="spatial" if n_sp > 1 else None)
     b, (h, w) = args.batch, (2160, 3840) if args.uhd else (1080, 1920)
     rng = np.random.default_rng(0)
     f0 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3), np.uint8)).cuda()
     f1 = torch.roll(f0, shifts=(3, -5), dims=(1, 2))
     ts = np.full(b, 0.5, np.float32)
     for _ in range(2):
-        sess.process_batch_device(f0, f1, ts)
+        step.process_batch_device(f0, f1, ts)
     torch.cuda.synchronize()
 
     def run_steps():
@@ -88,7 +105,7 @@ def main() -> int:
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(args.steps):
-                sess.process_batch_device(f0, f1, ts)
+                step.process_batch_device(f0, f1, ts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         return prof.key_averages(), wall
@@ -99,6 +116,8 @@ def main() -> int:
     step_ms = wall / args.steps * 1e3
     modes = (" fuse_ds2" * args.fuse_ds2 + " -x -z" * args.tta
              + " -u" * args.uhd)
+    if n_data * n_sp > 1:
+        modes += f" mesh {n_data}x{n_sp} of cuda:0"
     print(f"{LABEL},{modes or ' plain'}, bf16 {h}x{w} B={b}, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"step wall {step_ms:.3f} ms (profiled), device kernel time "
