@@ -2,8 +2,9 @@
 // v2.3 and v1 paths: a 3x3 pad-1 conv, stride 1 or 2, over the channel concat of
 // 1-4 input parts (the concat is never built), f32 accumulation, the f32
 // bias and the activation (none, ReLU, leaky, per-channel PReLU) in f32 and
-// one rounding to the storage dtype.  A deconv site (4x4 stride-2 transposed
-// conv) runs as the stride-1 conv over its four output phases.  Plain C
+// one rounding to the storage dtype, optionally followed by a PixelShuffle.
+// In f32 a deconv site (4x4 stride-2 transposed conv) runs as the stride-1
+// conv over its four output phases; in bf16 it takes csrc/deconv.cu.  Plain C
 // interface, loaded with ctypes by rife_tpu_torch/native/build.py; the
 // PyTorch wrapper, the plain twins, the weight packing and the site gates are
 // in rife_tpu_torch/ops/conv.py.
@@ -15,10 +16,10 @@
 //   stride 2  _conv_planar_s2_direct_cat / _conv_planar_s2_direct ->
 //             _conv_s2_direct_kernel (K12); conv_s2_bhcw -> _conv_s2_kernel
 //             (K10) computes the same
-//   B4        conv_ps_planar / deconv_ps_planar: K11 (the deconv's phase
-//             conv) with the output channels permuted so that PixelShuffle
-//             is a reshape; here the epilogue writes the shuffled addresses
-//             (the TPU's permutation only buys a free BHCW reshape)
+//   B4        conv_ps_planar: K11 with the output channels permuted so that
+//             PixelShuffle is a reshape; here the epilogue writes the
+//             shuffled addresses (the TPU's permutation only buys a free BHCW
+//             reshape); deconv_ps_planar is csrc/deconv.cu's
 //
 // bf16, the main path: conv3x3_tc_kernel, an implicit GEMM on the tensor
 // cores (mma.sync.m16n8k16, bf16 in, f32 accumulate).
@@ -57,12 +58,10 @@
 //   the group's bias and negative-side factors sit in shared memory (read
 //   from global memory per element they were the costliest part of the
 //   epilogue); each warp stages its output row through shared memory and
-//   writes 16-byte vectors along x in NCHW.  A deconv site writes phase (py, px)
-//   of channel o straight to (2y+py, 2x+px): no separate interleave.  A
-//   PixelShuffle(r) site writes channel c r^2 + i r + j to (r y + i, r x + j),
-//   and a deconv + PixelShuffle(2) site both at once (4y + 2py + i, 4x + 2px
-//   + j): each written row interleaves R staged channels column by column,
-//   packed into 16-byte vectors where the row allows them (out_row).
+//   writes 16-byte vectors along x in NCHW.  A PixelShuffle(r) site writes
+//   channel c r^2 + i r + j to (r y + i, r x + j): each written row
+//   interleaves r staged channels column by column, packed into 16-byte
+//   vectors where the row allows them (out_row).
 //
 // f32 (not the main path) keeps the CUDA-core kernel conv3x3_kernel: TF32
 // tensor cores would break the f32 bars.
@@ -307,37 +306,21 @@ struct TcArgs {
   float alpha;
   int tiles_x, tiles_y, n_tiles;
   int group_ch;  // output channels of a group (blockIdx.y)
-  int phase_o;   // deconv: channels of the transposed conv's output; 0: plain
-  int ps;        // PixelShuffle factor of the output (1: none)
-  int rows;      // output rows (and columns) a conv output row becomes: R
+  int ps;        // PixelShuffle factor of the output (1: none): R
   int out_ch;    // channels of the written tensor
   int vec_in;    // 8-byte input loads allowed (W % 4 == 0, parts 8-byte aligned)
 };
 
-// Output row s of a tile row (R > 1): the written channel cc, the row
-// offset dy within the R rows that conv output row oy becomes, and the
-// staged channel of its column R x + k, base + (k / kb) hi + (k % kb) lo:
-//   PixelShuffle(r), R = r:    channel cc r^2 + dy r + k      (s = cc r + dy)
-//   deconv phases, R = 2:      phase (py, px) = (dy, k) of channel cc,
-//                              conv channel (2 py + px) O + cc (s = py O + cc)
-//   deconv + PixelShuffle(2), R = 4: dy = 2 py + i, k = 2 px + j, conv
-//                              channel (2 py + px) O + 4 cc + 2 i + j
-//                              (s = dy O/4 + cc)
+// Output row s of a tile row (PixelShuffle(r), R = r): the written channel
+// cc = s / r, the row offset dy = s % r within the r rows that conv output
+// row oy becomes, and the staged channel of its column r x + k: s r + k.
 struct OutRow {
-  int cc, dy, base, kb, hi, lo;
-  __device__ __forceinline__ int channel(int k) const { return base + (k / kb) * hi + (k % kb) * lo; }
+  int cc, dy, base;
+  __device__ __forceinline__ int channel(int k) const { return base + k; }
 };
 
 __device__ __forceinline__ OutRow out_row(const TcArgs& a, int s) {
-  const int o = a.phase_o;
-  if (o == 0) return OutRow{s / a.ps, s % a.ps, s * a.ps, a.ps, 0, 1};
-  if (a.ps == 1) {
-    const int py = s / o, cc = s % o;
-    return OutRow{cc, py, 2 * py * o + cc, 1, o, 0};
-  }
-  const int q = o / 4;
-  const int d = s / q, cc = s % q;
-  return OutRow{cc, d, 2 * (d >> 1) * o + 4 * cc + 2 * (d & 1), 2, o, 1};
+  return OutRow{s / a.ps, s % a.ps, s * a.ps};
 }
 
 // Load one 16-channel chunk of tile t into registers: item i of this thread
@@ -518,7 +501,7 @@ conv3x3_tc_kernel(TcArgs a) {
         }
         __syncwarp();
         if (oy < a.ho) {
-          if (a.rows == 1) {
+          if (a.ps == 1) {
             // channel n, 8 columns a lane: out[b][g0 + n][oy][ox0 + 8 h ...]
             const bool vec = (a.wo & 7) == 0;
             for (int idx = lane; idx < n_valid * 2; idx += 32) {
@@ -533,10 +516,10 @@ conv3x3_tc_kernel(TcArgs a) {
               }
             }
           } else {
-            // interleaved rows (a deconv's phases, a PixelShuffle, or both):
-            // each output row of channel cc is R staged channels interleaved
-            // column by column, 16 R columns a tile row, 8 a lane at a time
-            const int R = a.rows;
+            // PixelShuffle rows: each output row of channel cc is R staged
+            // channels interleaved column by column, 16 R columns a tile
+            // row, 8 a lane at a time
+            const int R = a.ps;
             const int chunks = 2 * R;
             const int wr = R * a.wo, hr = R * a.ho;
             const bool vec = (wr & 7) == 0;
@@ -685,24 +668,20 @@ extern "C" int rife_conv3x3(const void* x0, const void* x1, const void* x2, cons
 
 // C interface, bf16 on the tensor cores.  Parts as above in bf16; weight_tc
 // the packed (9, cout, cp) bf16 weights, cp = cin rounded up to 16, zero past
-// cin; bias and slope float32 (cout,) or null.  phase_o = 0: out (B, cout,
-// Ho, Wo) as above, or with ps = r > 1 its PixelShuffle(r), (B, cout/r^2,
-// r Ho, r Wo).  phase_o = O > 0 (a deconv site, stride 1, cout = 4 O, channel
-// (py*2+px)*O + o is output phase (py, px) of channel o): out (B, O, 2H, 2W),
-// or with ps = 2 its PixelShuffle(2), (B, O/4, 4H, 4W).  Returns
-// cudaGetLastError() right after the launch, or the reason the launch was
-// refused.
+// cin; bias and slope float32 (cout,) or null.  out (B, cout, Ho, Wo) as
+// above, or with ps = r > 1 its PixelShuffle(r), (B, cout/r^2, r Ho, r Wo).
+// Returns cudaGetLastError() right after the launch, or the reason the
+// launch was refused.
 extern "C" int rife_conv3x3_tc(const void* x0, const void* x1, const void* x2, const void* x3,
                                int c0, int c1, int c2, int c3, const void* weight_tc, int cp,
                                const void* bias, const void* slope, void* out, int batch, int h,
-                               int w, int cout, int stride, int act, float alpha, int phase_o,
-                               int ps, void* stream) {
+                               int w, int cout, int stride, int act, float alpha, int ps,
+                               void* stream) {
   const Parts parts = {{x0, x1, x2, x3}, {c0, c1, c2, c3}};
   const int cin = c0 + c1 + c2 + c3;
   if (cin <= 0 || cout <= 0 || cp < cin || cp % kChunk || (stride != 1 && stride != 2) ||
-      act < kNone || act > kPrelu || (act == kPrelu && slope == nullptr) ||
-      (phase_o > 0 && (stride != 1 || cout != 4 * phase_o)) || ps < 1 || ps > 8 ||
-      (phase_o > 0 && ps > 2) || (phase_o > 0 ? phase_o : cout) % (ps * ps))
+      act < kNone || act > kPrelu || (act == kPrelu && slope == nullptr) || ps < 1 || ps > 8 ||
+      cout % (ps * ps))
     return static_cast<int>(cudaErrorInvalidValue);
   DeviceInfo dev;
   const cudaError_t dev_rc = current_device_info(&dev);
@@ -722,28 +701,17 @@ extern "C" int rife_conv3x3_tc(const void* x0, const void* x1, const void* x2, c
   a.wo = (w - 1) / stride + 1;
   a.act = act;
   a.alpha = alpha;
-  a.phase_o = phase_o;
   a.ps = ps;
-  a.rows = (phase_o > 0 ? 2 : 1) * ps;
-  a.out_ch = (phase_o > 0 ? phase_o : cout) / (ps * ps);
+  a.out_ch = cout / (ps * ps);
   bool aligned = (w & 3) == 0;
   for (int k = 0; k < kMaxParts; ++k)
     aligned = aligned && (reinterpret_cast<uintptr_t>(parts.ptr[k]) & 7) == 0;
   a.vec_in = aligned ? 1 : 0;
-  // groups of at most 64 output channels; a deconv's groups hold whole output
-  // rows of phases (py), so each group writes both px of a channel, and a
-  // PixelShuffle's groups whole blocks of ps^2 channels
-  int n_groups;
-  if (phase_o > 0) {
-    n_groups = cout <= 64 ? 1 : 2;
-    a.group_ch = (cout + n_groups - 1) / n_groups;
-    if (n_groups == 2 && a.group_ch != 2 * phase_o)
-      return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    const int blk = ps * ps, blocks = cout / blk;
-    n_groups = (cout + 63) / 64;
-    a.group_ch = (blocks + n_groups - 1) / n_groups * blk;
-  }
+  // groups of at most 64 output channels; a PixelShuffle's groups hold
+  // whole blocks of ps^2 channels
+  const int blk = ps * ps, blocks = cout / blk;
+  const int n_groups = (cout + 63) / 64;
+  a.group_ch = (blocks + n_groups - 1) / n_groups * blk;
   if (a.group_ch > 64 || n_groups > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t rc = stride == 1 ? dispatch_tc<1>(a, batch, n_groups, dev, s)

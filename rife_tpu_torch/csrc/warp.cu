@@ -26,6 +26,11 @@
 //   rife_warp_ds2       _warp_pallas_u8_ds2_impl -> _warp_kernel_u8_slab_ds2 (K3):
 //                       u8-origin warp of a frame copy fused with the exact
 //                       half-pixel 1/2 downsample         [rife.WarpDs2, fuse_ds2]
+//   rife_warp_spatial   warp_pallas_spatial (S, :2901): one shard's output rows
+//                       of a warp over the whole (all-gathered) source, from the
+//                       shard's raw flow rows and their first global row; u8 or
+//                       float mode, optionally at the 1/4 taps with the two
+//                       0.5/0.5 passes           [every warp, height-sharded]
 //
 // What bounds them on the H100: a backward warp is a data-dependent gather at
 // about 2 FLOP per byte, so memory and latency bound it and the tensor cores
@@ -80,6 +85,15 @@
 // None of the TPU's band/slab/sheared staging or VMEM stripes carries over:
 // those exist because a TPU has no gather unit.
 
+// S (warp_spatial_kernel) samples a shard's rows at global positions
+// computed in registers from its raw flow rows and row0, exactly as the
+// positions tensor the earlier form built (x + fx, (row0 + y) + fy, each an
+// f32 add), so no positions tensor is written or read: a thread an output
+// pixel (ds4: a 1/4-resolution output, its four taps' corners live, as K7,
+// under an 85-register bound: at K7's 64 the row offset and channel loop
+// spilled), channel groups as K1/K2 in float mode.  It reads the flow rows once, the
+// source rows the positions reach and writes the output once.
+//
 // Rounding: every f32 operation uses the _rn intrinsics, so nvcc cannot
 // contract a multiply and an add into an FMA, and the result follows the twin's
 // operation order exactly.  Storage-dtype steps (K6 blend, K7 averages) round
@@ -440,7 +454,83 @@ __global__ void __launch_bounds__(256, 8)
         __fadd_rn(q<T>(__fmul_rn(u[0][c], 0.5f)), q<T>(__fmul_rn(u[1][c], 0.5f))));
 }
 
-constexpr int kBx = 32, kBy = 8;      // K7's block of 1/4-resolution outputs
+// S: output pixel (x, y) of a shard's rows [row0, row0 + rows) samples the
+// whole source (h rows) at (x + fx, (row0 + y) + fy), the flow (B,2,rows,W)
+// read at the shard's own row y; u8 mode (C == 3) the u8-origin sum scaled by
+// 1/255, float mode the float warp's sum, both cast once to T.  kDs4: output
+// (i, j) of the 1/4 grid averages the casts of its four taps (4i+1+ty,
+// 4j+1+tx), 0.5/0.5 over rows then columns in T (half_sum2's order, K7's
+// epilogue).  Float mode: the block's `group` channels of blockIdx.y's group.
+template <typename T, bool kU8, bool kDs4>
+__global__ void __launch_bounds__(256, kDs4 ? 3 : 6) warp_spatial_kernel(
+    const T* __restrict__ img, const T* __restrict__ flow, T* __restrict__ out, int c,
+    int group, int ngroups, int h, int w, int rows, int row0) {
+  const int ho = kDs4 ? rows >> 2 : rows, wo = kDs4 ? w >> 2 : w;
+  const int x = blockIdx.x * blockDim.x + threadIdx.x;
+  const int y = (blockIdx.y / ngroups) * blockDim.y + threadIdx.y;
+  if (x >= wo || y >= ho) return;
+  const int b = blockIdx.z;
+  const int c0 = kU8 ? 0 : (blockIdx.y % ngroups) * group;
+  const int c1 = kU8 ? 3 : min(c, c0 + group);
+  const size_t plane = static_cast<size_t>(h) * w;
+  const size_t fplane = static_cast<size_t>(rows) * w;
+  const size_t plane_o = static_cast<size_t>(ho) * wo;
+  const T* src = img + plane * c * b;
+  const T* fl = flow + 2 * fplane * b;
+  T* dst = out + plane_o * c * b + static_cast<size_t>(y) * wo + x;
+  if constexpr (!kDs4) {
+    const size_t p = static_cast<size_t>(y) * w + x;
+    const Corners k = corners(__fadd_rn(static_cast<float>(x), ldf(fl + p)),
+                              __fadd_rn(static_cast<float>(row0 + y), ldf(fl + fplane + p)),
+                              h, w);
+    for (int ch = c0; ch < c1; ++ch) {
+      const T* pl = src + ch * plane;
+      float v;
+      if constexpr (kU8) {
+        v = sample(pl, k);
+      } else {
+        v = feat_sum(ldf(pl + k.i00), ldf(pl + k.i01), ldf(pl + k.i10), ldf(pl + k.i11), k.w00,
+                     k.w01, k.w10, k.w11);
+      }
+      dst[ch * plane_o] = store<T>(v);
+    }
+  } else {
+    Corners k[2][2];
+#pragma unroll
+    for (int ty = 0; ty < 2; ++ty)
+#pragma unroll
+      for (int tx = 0; tx < 2; ++tx) {
+        const int ly = 4 * y + 1 + ty, lx = 4 * x + 1 + tx;
+        const size_t p = static_cast<size_t>(ly) * w + lx;
+        k[ty][tx] = corners(__fadd_rn(static_cast<float>(lx), ldf(fl + p)),
+                            __fadd_rn(static_cast<float>(row0 + ly), ldf(fl + fplane + p)), h,
+                            w);
+      }
+    for (int ch = c0; ch < c1; ++ch) {
+      const T* pl = src + ch * plane;
+      float col[2];
+#pragma unroll
+      for (int tx = 0; tx < 2; ++tx) {
+        float v[2];
+#pragma unroll
+        for (int ty = 0; ty < 2; ++ty) {
+          const Corners& kk = k[ty][tx];
+          if constexpr (kU8) {
+            v[ty] = q<T>(sample(pl, kk));
+          } else {
+            v[ty] = q<T>(feat_sum(ldf(pl + kk.i00), ldf(pl + kk.i01), ldf(pl + kk.i10),
+                                  ldf(pl + kk.i11), kk.w00, kk.w01, kk.w10, kk.w11));
+          }
+        }
+        col[tx] = q<T>(__fadd_rn(q<T>(__fmul_rn(v[0], 0.5f)), q<T>(__fmul_rn(v[1], 0.5f))));
+      }
+      dst[ch * plane_o] =
+          store<T>(__fadd_rn(q<T>(__fmul_rn(col[0], 0.5f)), q<T>(__fmul_rn(col[1], 0.5f))));
+    }
+  }
+}
+
+constexpr int kBx = 32, kBy = 8;      // K7's and S's block of outputs
 constexpr int kDs2Bx = 32, kDs2By = 4;  // K3's block of 1/2-resolution outputs
 
 inline dim3 grid_for(int w, int h, int z) {
@@ -640,6 +730,44 @@ int rife_warp_single(const void* img, const void* pos, void* out, int batch, int
     launch_single<float, float, true>(a, u8);
   else
     launch_single<float, float, false>(a, u8);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// S.  img (B,C,H,W) the whole source; flow (B,2,rows,W) the shard's rows of
+// the raw flow, in the image dtype; row0 the global row of its first row
+// (0 <= row0, row0 + rows <= H); out (B,C,rows,W), or with ds4 != 0
+// (B,C,rows/4,W/4) (rows and W divisible by 4).  u8 != 0: C == 3, the
+// u8-origin sampling; else the float warp, `group` channels a block.
+int rife_warp_spatial(const void* img, const void* flow, void* out, int batch, int c, int h,
+                      int w, int rows, int row0, int u8, int ds4, int bf16, int group,
+                      void* stream) {
+  if (batch < 1 || c < 1 || rows < 1 || row0 < 0 || row0 + rows > h || (u8 && c != 3) ||
+      group < 1 || (ds4 && ((rows | w) & 3)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int ho = ds4 ? rows / 4 : rows, wo = ds4 ? w / 4 : w;
+  const int ngroups = u8 ? 1 : (c + group - 1) / group;
+  const dim3 grid((wo + kBx - 1) / kBx, ((ho + kBy - 1) / kBy) * ngroups, batch);
+  const dim3 block(kBx, kBy);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  using B = __nv_bfloat16;
+#define RIFE_SPATIAL(T, U, D)                                                                \
+  warp_spatial_kernel<T, U, D><<<grid, block, 0, s>>>(                                       \
+      static_cast<const T*>(img), static_cast<const T*>(flow), static_cast<T*>(out), c, group, \
+      ngroups, h, w, rows, row0)
+  if (bf16) {
+    if (u8) {
+      if (ds4) RIFE_SPATIAL(B, true, true); else RIFE_SPATIAL(B, true, false);
+    } else {
+      if (ds4) RIFE_SPATIAL(B, false, true); else RIFE_SPATIAL(B, false, false);
+    }
+  } else {
+    if (u8) {
+      if (ds4) RIFE_SPATIAL(float, true, true); else RIFE_SPATIAL(float, true, false);
+    } else {
+      if (ds4) RIFE_SPATIAL(float, false, true); else RIFE_SPATIAL(float, false, false);
+    }
+  }
+#undef RIFE_SPATIAL
   return static_cast<int>(cudaGetLastError());
 }
 

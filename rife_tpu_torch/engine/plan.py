@@ -9,22 +9,30 @@ every layer kind the port runs, and applies the dispatch rules of
 ``rife.WarpDs2`` of a frame copy, the single-warp kernel in its u8 or float
 mode for the rest (float only in a run whose ctx sets ``no_u8_warp``: the UHD
 flownet, walked at its halved geometry), ``conv3x3`` where the gates of
-``ops/conv.py`` take a conv site, and ``conv3x3_ps`` where they take a
-``rife.ConvPS`` / ``rife.DeconvPS`` site (on its pre-shuffle channels).
+``ops/conv.py`` take a conv site, ``conv3x3_ps`` where they take a
+``rife.ConvPS`` site (on its pre-shuffle channels), and for a deconv site
+its route (``ops/conv.py`` ``deconv_route``, for the session's device and
+dtype): ``deconv4x4`` wherever the deconv kernel runs (bf16 on the card:
+the planar sites and every other 4x4 stride-2 one), else, at a planar
+site, the ``conv3x3`` (``conv3x3_ps`` for a DeconvPS) that runs its phase
+conv.
 Rank-2 blobs (the v1 SE gates: global ``Pooling``, ``InnerProduct``) have
 shape (C,).  The result, launches per kernel per step, does not depend on
 the batch size.  ``n_spatial`` > 1 counts a step height-sharded over that
 many shards (``graph/spatial.py``): each non-empty shard runs each net,
-its warps all unfused into single warps (``ShardedRIFE.kernel_sites``
-multiplies by the data shards).  ``chip_smoke.py`` holds the card's launch
-counters to it, and times ``conv3x3`` / ``conv3x3_ps`` at each site
-``conv_sites`` lists.
+its warps all unfused into sharded warps (``warp_spatial``;
+``ShardedRIFE.kernel_sites`` multiplies by the data shards).
+``chip_smoke.py`` holds the card's launch counters to it, and times
+``conv3x3`` / ``conv3x3_ps`` / ``deconv4x4`` at each site ``conv_sites``
+lists.
 """
 
 from __future__ import annotations
 
 from collections import Counter
 from typing import Dict, List, Tuple
+
+import torch
 
 from ..graph.spatial import shard_bounds
 from ..ops import common as C
@@ -53,15 +61,16 @@ def _cut(shape: Shape, axis: int, start: int, end: int) -> Shape:
 
 
 def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
-          sharded=False):
+          sharded=False, device="cpu", dtype=torch.float32):
     """(kernel launches, blob shapes, conv sites) of one run of ``ex`` with
-    ``run_ctx`` over its ctx, as ``Executor.run`` merges them; a conv site
-    is (kernel, site), the site the kernel call's (part channels, cout,
-    stride, activation code, input H, W, deconv): a deconv site's cout
-    counts its four output phases, a PixelShuffle site's the channels
-    before the shuffle.  ``sharded``: the launches of one shard of a
-    height-sharded run, where no warp fuses (single warps at absolute
-    positions)."""
+    ``run_ctx`` over its ctx, as ``Executor.run`` merges them, in a session
+    on ``device`` in ``dtype``; a conv site is (kernel, site), the site the
+    kernel call's (part channels, cout, stride, activation code, input H, W,
+    deconv): a deconv site's cout counts its four output phases, a
+    PixelShuffle site's the channels before the shuffle; a ``deconv4x4``
+    site is ((cin,), O, PixelShuffle factor, activation code, input H, W,
+    XLA order).  ``sharded``: the launches of one shard of a height-sharded
+    run, where no warp fuses (sharded warps, ``warp_spatial``)."""
     g, ctx = ex.graph, {**ex.ctx, **(run_ctx or {})}
     u8 = () if ctx.get("no_u8_warp") else ctx.get("u8_image_blobs", ())
     planar = ctx.get("planar_convs", False)
@@ -70,6 +79,9 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
     convs: List[tuple] = []
 
     def single(blob, shape):
+        if sharded:
+            sites["warp_spatial"] += 1
+            return
         sites["warp_u8" if shape[0] == 3 and blob in u8 else "warp_feat"] += 1
 
     def pair_ok(node, a, b, fa, fb):
@@ -110,9 +122,15 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
                 outs = [(cout, oh, ow)]
         elif kind in ("Deconvolution", "rife.DeconvPS"):
             cout = int(node.p(0))
-            if planar and CV.deconv_wants_planar(node, x[1], x[2], x[0], cout,
-                                                 ctx):
-                act = CV.ACT_MAP[C.activation_of(node)[0]]
+            route = CV.deconv_route(node, x[1], x[2], x[0], cout, ctx, device,
+                                    dtype)
+            ps = 2 if kind == "rife.DeconvPS" and int(node.p(25, 2)) == 2 \
+                else 1
+            act = CV.ACT_MAP.get(C.activation_of(node)[0])
+            if route != "library" and CV.deconv_on_kernel(device, dtype):
+                convs.append(("deconv4x4", ((x[0],), cout, ps, act, x[1],
+                                            x[2], route == "xla")))
+            elif route == "planar":
                 name = ("conv3x3_ps" if kind == "rife.DeconvPS"
                         else "conv3x3")
                 convs.append((name, ((x[0],), 4 * cout, 1, act, x[1], x[2],
@@ -202,8 +220,9 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
 
 def _plan(session, h: int, w: int, n_spatial: int = 1):
     """(launches per kernel, [(batch factor, site), ...] of ``conv3x3``,
-    the same of ``conv3x3_ps``) of one step.  The batch factor is the run's
-    batch over the session's: 4 for a spatial-TTA view group, for v2 twice
+    the same of ``conv3x3_ps``, the same of ``deconv4x4``) of one step.
+    The batch factor is the run's batch over the session's: 4 for a
+    spatial-TTA view group, for v2 twice
     that for the contextnet, which runs on both frames at once (v1 runs it
     once per frame, fed ``flow.0`` and ``flow.1``).  Spatial TTA runs each
     net once per view geometry, canonical and transposed; temporal TTA runs
@@ -218,11 +237,14 @@ def _plan(session, h: int, w: int, n_spatial: int = 1):
     sweeps = 2 if temporal else 1
     ex = session.executors
     sites: Counter = Counter()
-    convs: Dict[str, List[tuple]] = {"conv3x3": [], "conv3x3_ps": []}
+    convs: Dict[str, List[tuple]] = {"conv3x3": [], "conv3x3_ps": [],
+                                     "deconv4x4": []}
 
     def walk(net, inputs, outputs, factor, runs=1, run_ctx=None):
         more, shapes, found = _walk(ex[net], inputs, outputs, run_ctx,
-                                    sharded=n_spatial > 1)
+                                    sharded=n_spatial > 1,
+                                    device=session.device,
+                                    dtype=session.dtype)
         if n_spatial > 1:  # every non-empty shard runs the net
             rows = max(s[1] for s in inputs.values() if len(s) == 3)
             runs *= len(shard_bounds(rows, n_spatial)) - 1
@@ -262,7 +284,7 @@ def _plan(session, h: int, w: int, n_spatial: int = 1):
                  for i, f in enumerate(CONTEXT_FEATS)}
         walk("fusionnet", {"img0": img, "img1": img, "flow": flow, **feats},
              ["output"], views, sweeps)
-    return sites, convs["conv3x3"], convs["conv3x3_ps"]
+    return sites, convs["conv3x3"], convs["conv3x3_ps"], convs["deconv4x4"]
 
 
 def kernel_sites(session, h: int, w: int,
@@ -277,14 +299,17 @@ def kernel_sites(session, h: int, w: int,
 
 def conv_sites(session, h: int, w: int,
                kernel: str = "conv3x3") -> List[tuple]:
-    """The distinct calls of ``kernel`` (``conv3x3``, or ``conv3x3_ps``: the
-    PixelShuffle sites) in one step on (h, w) frames, as (batch factor, part
-    channels, cout, stride, activation code, H, W, deconv): a deconv site
-    (``deconv4x4``) has cout = 4 x its channels, a PixelShuffle site the
-    channels before the shuffle."""
+    """The distinct calls of ``kernel`` (``conv3x3``; ``conv3x3_ps``: the
+    PixelShuffle sites; ``deconv4x4``: the deconv kernel's) in one step on
+    (h, w) frames, as (batch factor, part channels, cout, stride, activation
+    code, H, W, deconv): a deconv site on ``conv3x3`` has cout = 4 x its
+    channels, a PixelShuffle site the channels before the shuffle; a
+    ``deconv4x4`` site is (batch factor, (cin,), O, PixelShuffle factor,
+    activation code, H, W, XLA order)."""
     plan = _plan(session, h, w)
     seen = []
-    for factor, site in plan[1] if kernel == "conv3x3" else plan[2]:
+    names = ("conv3x3", "conv3x3_ps", "deconv4x4")
+    for factor, site in plan[1 + names.index(kernel)]:
         if (factor, *site) not in seen:
             seen.append((factor, *site))
     return seen

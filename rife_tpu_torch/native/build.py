@@ -117,6 +117,10 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # tile width and height, channel group, stream
     lib.rife_warp_single.argtypes = [vp] * 3 + [i] * 12 + [vp]
     lib.rife_warp_single.restype = i
+    # whole source, the shard's flow rows, out; batch, C, H, W, rows, row0,
+    # u8, ds4, bf16, channel group, stream
+    lib.rife_warp_spatial.argtypes = [vp] * 3 + [i] * 10 + [vp]
+    lib.rife_warp_spatial.restype = i
     # f32: 4 part pointers, 4 channel counts, weight, bias, slope, out;
     # batch, H, W, Cout, stride, activation, alpha, stream
     lib.rife_conv3x3.argtypes = ([vp] * 4 + [i] * 4 + [vp] * 4 + [i] * 6
@@ -124,10 +128,15 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rife_conv3x3.restype = i
     # bf16: 4 part pointers, 4 channel counts, packed weight, its padded
     # Cin, bias, slope, out; batch, H, W, Cout, stride, activation, alpha,
-    # deconv output channels (0: plain conv), PixelShuffle factor, stream
+    # PixelShuffle factor, stream
     lib.rife_conv3x3_tc.argtypes = ([vp] * 4 + [i] * 4 + [vp, i] + [vp] * 3
-                                    + [i] * 6 + [ctypes.c_float, i, i, vp])
+                                    + [i] * 6 + [ctypes.c_float, i, vp])
     lib.rife_conv3x3_tc.restype = i
+    # x, Cin, packed 4-tap weight, its padded Cin, bias, slope, out; batch,
+    # H, W, Cout, activation, alpha, PixelShuffle factor, XLA order, stream
+    lib.rife_deconv4x4.argtypes = ([vp, i, vp, i] + [vp] * 3 + [i] * 5
+                                   + [ctypes.c_float, i, i, vp])
+    lib.rife_deconv4x4.restype = i
     lib.rife_error_string.argtypes = [i]
     lib.rife_error_string.restype = ctypes.c_char_p
     return lib

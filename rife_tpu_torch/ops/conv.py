@@ -13,17 +13,26 @@ storage dtype (``conv_planar.py:56-63,93-94``).  It replaces
 functions and are covered by it.  In bf16 it runs on the tensor cores over
 weights packed once per model (``pack_weight_tc``: (9, Cout, Cin padded to
 16)); in f32 on the CUDA cores over the OIHW weights.  ``deconv4x4`` runs
-the 4x4 stride-2 transposed conv of the planar deconv sites as
-``conv_planar.deconv_planar`` does: one stride-1 conv producing the four
-output phases on its output channels (``deconv_phase_weights``); in bf16 the
-kernel writes each phase to its interleaved place, in f32 a plain
-reshape/permute interleaves them (``interleave_phases``).
+the 4x4 stride-2 transposed conv of the planar deconv sites: in bf16 on the
+card the deconv kernel (``rife_tpu_torch/csrc/deconv.cu``: four taps per
+output phase, over weights packed once per model by ``pack_weight_t4``),
+which writes the interleaved (and shuffled) output itself; in f32, and in
+its twin, as ``conv_planar.deconv_planar`` does it: one stride-1 conv
+producing the four output phases on its output channels
+(``deconv_phase_weights``), then a plain reshape/permute
+(``interleave_phases``).  ``deconv4x4_xla`` runs the same kernel at every
+other bf16 4x4 stride-2 pad-1 deconv site on the card (v4.6's
+``rife.DeconvPS``, the planar nets' deconvs under the gates) in XLA's
+order (below); ``deconv_route`` decides which site takes which.
 
 Numeric trap (ROADMAP queue C): the XLA conv that the JAX package runs off
 these sites rounds the conv result to the storage dtype BEFORE it adds the
 bias (``jax_ops.conv2d``); the planar kernel adds the f32 bias before its
 single rounding.  The cuDNN sites of ``torch_ops`` keep the XLA form, the
-kernel sites this one; in f32 the two agree.
+kernel sites this one; in f32 the two agree.  ``deconv4x4_xla`` keeps the
+XLA form on the kernel: the sum rounded to bf16, then the bf16 bias, then
+the activation in bf16 (what cuDNN's bf16 ``conv_transpose2d`` followed by
+PyTorch's bias add computed at those sites before).
 
 Gates (``planar_ops.py:63-102,146-158``): exactly the sites that the TPU's
 planar executor (the default for the v1/v2/v3 nets) sends to K11/K12.
@@ -34,7 +43,9 @@ thresholds (ctx ``planar_min_hw`` / ``planar_deconv_min_hw`` override them,
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises (nothing falls back to another kernel or to the twin).  ``LAUNCHES``
-counts kernel launches.
+counts kernel launches: ``conv3x3`` and ``conv3x3_ps`` the conv kernels',
+``deconv4x4`` the deconv kernel's (both of its wrappers, every order and
+shuffle).
 """
 
 from __future__ import annotations
@@ -48,7 +59,7 @@ import torch.nn.functional as F
 from . import common as C
 from . import launch as L
 
-LAUNCHES = {"conv3x3": 0, "conv3x3_ps": 0}
+LAUNCHES = {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
 
 CONV_MIN_HW = 400_000
 DECONV_MIN_HW = 25_000
@@ -117,6 +128,38 @@ def deconv_wants_planar(node, h, w, cin, cout, ctx) -> bool:
     _, k, _, stride, pad, _ = C.conv_hyperparams(node)
     return (_big(h, w, ctx, "planar_deconv_min_hw", DECONV_MIN_HW)
             and planar_deconv_ok(cin, cout, k, stride, pad))
+
+
+def is_deconv4x4(node) -> bool:
+    """A 4x4 stride-2 pad-1 transposed conv without dilation: the function
+    of the deconv kernel."""
+    _, k, dilation, stride, pad, _ = C.conv_hyperparams(node)
+    return (k, dilation, stride, pad) == (4, 1, 2, 1)
+
+
+def deconv_on_kernel(device, dtype) -> bool:
+    """Whether the 4x4 stride-2 deconv sites of a run on ``device`` in
+    ``dtype`` take the deconv kernel: bf16 on the card.  f32 runs keep the
+    routes that meet the f32 bar (the planar sites ``conv3x3``'s CUDA-core
+    form, the others cuDNN with TF32 off), and the CPU its twins."""
+    return torch.device(device).type == "cuda" and dtype == torch.bfloat16
+
+
+def deconv_route(node, h, w, cin, cout, ctx, device, dtype) -> str:
+    """The route of a ``Deconvolution`` / ``rife.DeconvPS`` site: "planar"
+    where the planar gates take it (``deconv4x4``: f32 bias, one rounding;
+    the deconv kernel in bf16 on the card), "xla" for every other 4x4
+    stride-2 pad-1 site of a bf16 run on the card (``deconv4x4_xla``: the
+    kernel in XLA's rounding order), else "library" (``F.conv_transpose2d``:
+    cuDNN, or oneDNN on the CPU).  Decided before a launch: the kernel raises
+    on what it cannot take (an activation outside ``ACT_MAP``) and nothing
+    falls back."""
+    if ctx.get("planar_convs") and deconv_wants_planar(node, h, w, cin, cout,
+                                                       ctx):
+        return "planar"
+    if is_deconv4x4(node) and deconv_on_kernel(device, dtype):
+        return "xla"
+    return "library"
 
 
 # ---------------------------------------------------------------------------
@@ -200,6 +243,84 @@ def deconv4x4_ref(x, phase_weight, phase_bias=None, phase_slope=None, *,
                      act=act, alpha=alpha)
     y = interleave_phases(y4)
     return F.pixel_shuffle(y, ps) if ps > 1 else y
+
+
+# (row of the packed layout, raw ky, raw kx) of each tap: output phase
+# (py, px) applies raw tap (3-py-2ry, 3-px-2rx) to input pixel (m+py+ry-1,
+# n+px+rx-1); rows phase by phase, in the 3x3 window's (row, column) order
+_T4_TAPS = [((py * 2 + px) * 4 + ry * 2 + rx, 3 - py - 2 * ry,
+             3 - px - 2 * rx)
+            for py in (0, 1) for px in (0, 1)
+            for ry in (0, 1) for rx in (0, 1)]
+
+
+def pack_weight_t4(weight: torch.Tensor) -> torch.Tensor:
+    """ncnn ConvTranspose 4x4 s2 p1 weights (I, O, 4, 4) -> the deconv
+    kernel's layout (16, O, Cp) (``_T4_TAPS``): the 16 rows are the nonzero
+    taps of ``deconv_phase_weights``; input channels zero-padded to
+    ``padded_cin``; contiguous, same dtype and device."""
+    cin, co = weight.shape[0], weight.shape[1]
+    packed = weight.new_zeros((16, co, padded_cin(cin)))
+    for row, ky, kx in _T4_TAPS:
+        packed[row, :, :cin] = weight[:, :, ky, kx].t()
+    return packed
+
+
+def unpack_weight_t4(packed: torch.Tensor, cin: int) -> torch.Tensor:
+    """Inverse of ``pack_weight_t4``: (16, O, Cp) -> (cin, O, 4, 4)."""
+    weight = packed.new_zeros((cin, packed.shape[1], 4, 4))
+    for row, ky, kx in _T4_TAPS:
+        weight[:, :, ky, kx] = packed[row, :, :cin].t()
+    return weight
+
+
+def activate_storage(y: torch.Tensor, act: int, alpha: float, slope):
+    """The activation in the storage dtype, as ``torch_ops`` applies it at a
+    cuDNN site (``apply_activation``): the leaky factor rounded to that
+    dtype, each negative product rounded once."""
+    if act == ACT_RELU:
+        return torch.clamp_min(y, 0)
+    if act == ACT_LEAKY:
+        return torch.where(y >= 0, y, y * torch.tensor(alpha, dtype=y.dtype))
+    if act == ACT_PRELU:
+        return torch.where(y >= 0, y, y * slope.to(y.dtype).reshape(
+            1, -1, 1, 1))
+    if act != ACT_NONE:
+        raise ValueError(f"activation code {act}")
+    return y
+
+
+def deconv4x4_xla_ref(x, weight, bias=None, slope=None, *, act=ACT_NONE,
+                      alpha=0.2, ps=1):
+    """Twin of the deconv kernel in XLA's order (``jax_ops.deconv2d`` +
+    ``_conv_act``): ``F.conv_transpose2d`` on f32 copies of ``x`` and the raw
+    (I, O, 4, 4) ``weight`` (TF32 off), rounded to ``x``'s dtype, then the
+    bias in that dtype, the activation in it (``activate_storage``) and,
+    with ``ps`` > 1, ``F.pixel_shuffle``.  ``bias`` / ``slope`` (O,) in any
+    float dtype, rounded to ``x``'s first."""
+    with _full_f32():
+        y = F.conv_transpose2d(x.float(), weight.float(), None, stride=2,
+                               padding=1)
+    y = y.to(x.dtype)
+    if bias is not None:
+        y = y + bias.to(x.dtype).reshape(1, -1, 1, 1)
+    y = activate_storage(y, act, alpha, slope)
+    return F.pixel_shuffle(y, ps) if ps > 1 else y
+
+
+def deconv_t4_ref(x, weight_t4, bias=None, slope=None, *, act=ACT_NONE,
+                  alpha=0.2, ps=1, xla=False):
+    """Twin of the deconv kernel over its packed weights: unpacked, then
+    ``deconv4x4_ref`` over the phase weights with the bias and slope tiled
+    4x (``xla`` False: f32 bias, one rounding), or ``deconv4x4_xla_ref``."""
+    raw = unpack_weight_t4(weight_t4, x.shape[1])
+    if xla:
+        return deconv4x4_xla_ref(x, raw, bias, slope, act=act, alpha=alpha,
+                                 ps=ps)
+    tile = (lambda t: None if t is None  # noqa: E731
+            else t.float().reshape(-1).repeat(4))
+    return deconv4x4_ref(x, deconv_phase_weights(raw), tile(bias),
+                         tile(slope), act=act, alpha=alpha, ps=ps)
 
 
 def padded_cin(cin: int) -> int:
@@ -290,12 +411,11 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
 
 
 def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
-            phase_o=0, ps=1):
+            ps=1):
     """One launch: the tensor-core kernel for bf16 (over ``weight_tc``, the
-    packed weights; ``phase_o`` > 0 writes a deconv's interleaved phases,
-    ``ps`` > 1 the PixelShuffle(ps) of the result), the CUDA-core kernel
-    for f32 (which writes the plain result).  It counts as ``conv3x3_ps``
-    when ``ps`` > 1, else as ``conv3x3``."""
+    packed weights; ``ps`` > 1 writes the PixelShuffle(ps) of the result),
+    the CUDA-core kernel for f32 (which writes the plain result).  It counts
+    as ``conv3x3_ps`` when ``ps`` > 1, else as ``conv3x3``."""
     b, h, w = parts[0].shape[0], parts[0].shape[2], parts[0].shape[3]
     cout = weight.shape[0]
     padded = parts + [None] * (MAX_PARTS - len(parts))
@@ -305,7 +425,7 @@ def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
         L.launch("rife_conv3x3_tc", device, *map(L.ptr, padded), *chans,
                  L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias),
                  L.ptr(slope), L.ptr(out), b, h, w, cout, stride, act,
-                 ctypes.c_float(alpha), phase_o, ps)
+                 ctypes.c_float(alpha), ps)
     else:
         L.launch("rife_conv3x3", device, *map(L.ptr, padded), *chans,
                  L.ptr(weight), L.ptr(bias), L.ptr(slope), L.ptr(out), b, h,
@@ -348,36 +468,105 @@ def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
     return F.pixel_shuffle(out, ps) if ps > 1 else out
 
 
+def _check_deconv(x, weight_t4, bias, slope, act, ps):
+    """Validate the deconv kernel's operands; returns (B, H, W, O)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"the deconv kernel takes CUDA tensors, got "
+                         f"{x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"the deconv kernel runs bf16 (f32 sites keep their "
+                        f"routes), got {x.dtype}")
+    if x.dim() != 4 or not x.is_contiguous():
+        raise ValueError(f"x must be contiguous (B,C,H,W), got "
+                         f"{tuple(x.shape)}")
+    b, cin, h, w = x.shape
+    if (weight_t4 is None or weight_t4.dim() != 3
+            or tuple(weight_t4.shape[::2]) != (16, padded_cin(cin))
+            or weight_t4.dtype != x.dtype or weight_t4.device != x.device
+            or not weight_t4.is_contiguous() or weight_t4.data_ptr() % 16):
+        got = None if weight_t4 is None else tuple(weight_t4.shape)
+        raise ValueError(f"weight_t4 must be contiguous, 16-byte aligned "
+                         f"(16, O, {padded_cin(cin)}) {x.dtype} on {x.device} "
+                         f"(pack_weight_t4), got {got}")
+    cout = weight_t4.shape[1]
+    for what, t in (("bias", bias), ("slope", slope)):
+        if t is None:
+            continue
+        if (t.dim() != 1 or t.shape[0] < cout or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"{what} must be contiguous float32 with at "
+                             f"least {cout} values on {x.device}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if act == ACT_PRELU and slope is None:
+        raise ValueError("PReLU needs a slope")
+    if act not in (ACT_NONE, ACT_RELU, ACT_LEAKY, ACT_PRELU):
+        raise ValueError(f"activation code {act}")
+    if ps not in (1, 2):
+        raise ValueError(f"the deconv kernel shuffles by 2 or not at all, "
+                         f"got {ps}")
+    _check_ps(ps, cout)
+    return b, h, w, cout
+
+
+def _launch_deconv(x, weight_t4, bias, slope, act, alpha, ps, xla):
+    """One launch of the deconv kernel; counts as ``deconv4x4``."""
+    b, h, w, cout = _check_deconv(x, weight_t4, bias, slope, act, ps)
+    out = x.new_empty((b, cout // (ps * ps), 2 * ps * h, 2 * ps * w))
+    L.launch("rife_deconv4x4", x.device, L.ptr(x), x.shape[1],
+             L.ptr(weight_t4), weight_t4.shape[2], L.ptr(bias), L.ptr(slope),
+             L.ptr(out), b, h, w, cout, act, ctypes.c_float(alpha), ps,
+             int(xla))
+    LAUNCHES["deconv4x4"] += 1
+    return out
+
+
 def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
-              act=ACT_NONE, alpha=0.2, phase_weight_tc=None, ps=1):
-    """4x4 stride-2 pad-1 transposed conv as a stride-1 conv over the phase
-    weights (``deconv_phase_weights``; bias and slope tiled 4x), the phases
-    interleaved into (B, O, 2H, 2W); with ``ps`` = 2 (B4, ``rife.DeconvPS``)
-    its PixelShuffle(2), (B, O/4, 4H, 4W).  CUDA bf16: one launch that writes
-    the interleaved (and shuffled) output (``phase_weight_tc`` the packed
-    phase weights).  Otherwise ``conv3x3`` (the twin on the CPU, the
-    CUDA-core kernel for f32), then ``interleave_phases`` (and
-    ``F.pixel_shuffle``): what ``deconv4x4_ref`` computes."""
+              act=ACT_NONE, alpha=0.2, weight_t4=None, ps=1):
+    """A planar deconv site: the 4x4 stride-2 pad-1 transposed conv with the
+    f32 bias and activation and one rounding, the phases interleaved into
+    (B, O, 2H, 2W); with ``ps`` = 2 (B4, ``rife.DeconvPS``) its
+    PixelShuffle(2), (B, O/4, 4H, 4W).  ``phase_bias`` / ``phase_slope``:
+    the deconv's (O,) float32 values tiled 4x, as the phase conv takes
+    them.  CUDA bf16: one launch of the deconv kernel over ``weight_t4``
+    (``pack_weight_t4``; it reads the first O values of the bias and
+    slope).  Otherwise ``conv3x3`` over the phase weights
+    (``deconv_phase_weights``: the twin on the CPU, the CUDA-core kernel
+    for f32), then ``interleave_phases`` (and ``F.pixel_shuffle``): what
+    ``deconv4x4_ref`` computes."""
     if x.device.type == "cpu":
         y = interleave_phases(conv3x3([x], phase_weight, phase_bias,
                                       phase_slope, stride=1, act=act,
                                       alpha=alpha))
         return F.pixel_shuffle(y, ps) if ps > 1 else y
-    b, h, w, cout = _check([x], phase_weight, phase_bias, phase_slope, 1, act,
-                           phase_weight_tc)
+    if x.dtype == torch.bfloat16:
+        return _launch_deconv(x, weight_t4, phase_bias, phase_slope, act,
+                              alpha, ps, xla=False)
+    b, h, w, cout = _check([x], phase_weight, phase_bias, phase_slope, 1,
+                           act)
     if cout % 4:
         raise ValueError(f"phase weights need 4*O output channels, got {cout}")
     if ps not in (1, 2):
         raise ValueError(f"deconv4x4 shuffles by 2 or not at all, got {ps}")
     _check_ps(ps, cout // 4)
-    if x.dtype == torch.bfloat16:
-        o = cout // 4 // (ps * ps)
-        out = x.new_empty((b, o, 2 * ps * h, 2 * ps * w))
-        _launch([x], phase_weight, phase_bias, phase_slope, out, 1, act, alpha,
-                phase_weight_tc, phase_o=cout // 4, ps=ps)
-        return out
     y4 = x.new_empty((b, cout, h, w))
     _launch([x], phase_weight, phase_bias, phase_slope, y4, 1, act, alpha,
-            phase_weight_tc, ps=ps)
+            None, ps=ps)
     y = interleave_phases(y4)
     return F.pixel_shuffle(y, ps) if ps > 1 else y
+
+
+def deconv4x4_xla(x, weight_t4, bias=None, slope=None, *, act=ACT_NONE,
+                  alpha=0.2, ps=1):
+    """A 4x4 stride-2 pad-1 deconv site outside the planar gates, in XLA's
+    order (``deconv4x4_xla_ref``), with ``ps`` = 2 its PixelShuffle(2):
+    CUDA bf16 one launch of the deconv kernel over ``weight_t4``, with
+    ``bias``, ``slope`` (float32, bf16 values) and ``alpha`` as the kernel
+    applies them in bf16; the CPU its twin (``deconv_t4_ref``, ``xla``);
+    anything else raises (the route is taken only where
+    ``deconv_on_kernel``)."""
+    if x.device.type == "cpu":
+        return deconv_t4_ref(x, weight_t4, bias, slope, act=act, alpha=alpha,
+                             ps=ps, xla=True)
+    alpha = float(torch.tensor(alpha, dtype=torch.bfloat16))
+    return _launch_deconv(x, weight_t4, bias, slope, act, alpha, ps,
+                          xla=True)

@@ -26,8 +26,12 @@ Convolutions go to ``F.conv2d`` / ``F.conv_transpose2d`` (cuDNN on the
 card), as the JAX package leaves them to XLA, except at the sites that the
 TPU's planar executor sends to its Pallas convs: in a net run with ctx
 ``planar_convs`` (the v1/v2/v3 nets), the gates of ``ops/conv.py`` route a
-site to the ``conv3x3`` kernel (K9-K12), and a ``rife.ConvPS`` /
-``rife.DeconvPS`` site to its PixelShuffle form (B4, ``conv3x3_ps``).  The
+site to the ``conv3x3`` kernel (K9-K12), a ``rife.ConvPS`` site to its
+PixelShuffle form (B4, ``conv3x3_ps``) and a deconv site to ``deconv4x4``.
+In a bf16 run on the card every other 4x4 stride-2 pad-1 deconv site
+(``Deconvolution``, ``rife.DeconvPS``) takes the deconv kernel too, in XLA's
+rounding order (``ops/conv.py`` ``deconv_route``): cuDNN gave a window of
+rows, or another batch size, other bytes.  The
 warps dispatch into ``ops/warp.py``: the pair kernels for paired u8-origin
 warps, the fused warp + 1/2 downsample (K3) for ``rife.WarpDs2`` of a frame
 copy, the single-warp kernel for the rest (u8-origin mode K4, float mode
@@ -169,8 +173,12 @@ def _conv_act(node, y, p):
 
 
 def _kernel_act(node):
-    """(kernel activation code, leaky alpha) of a conv node."""
+    """(kernel activation code, leaky alpha) of a conv node; an activation
+    the kernels do not take raises."""
     act, params = C.activation_of(node)
+    if act not in CV.ACT_MAP:
+        raise NotImplementedError(f"{node.type} {node.name}: fused activation "
+                                  f"{act} is not one the conv kernels take")
     alpha = float(params[0]) if act == C.ACT_LEAKY else 0.2
     return CV.ACT_MAP[act], alpha
 
@@ -214,18 +222,32 @@ def _op_convolution_cat(node, inputs, w, ctx):
     return _op_convolution(node, [torch.cat(inputs, dim=1)], w, ctx)
 
 
+def _deconv_site(node, x, p, ctx, ps=1):
+    """A deconv site on its route (``ops/conv.py`` ``deconv_route``): the
+    planar site's ``deconv4x4``, or ``deconv4x4_xla``; with ``ps`` = 2 the
+    PixelShuffle(2) of the result.  None on the library route."""
+    cin, cout = p["weight"].shape[0], p["weight"].shape[1]
+    route = CV.deconv_route(node, _site_rows(x, ctx), x.shape[3], cin, cout,
+                            ctx, x.device, x.dtype)
+    if route == "library":
+        return None
+    act, alpha = _kernel_act(node)
+    if route == "planar":
+        return CV.deconv4x4(x.contiguous(), p["phase_weight"],
+                            p["phase_bias_f32"], p.get("phase_slope_f32"),
+                            act=act, alpha=alpha, weight_t4=p["weight_t4"],
+                            ps=ps)
+    return CV.deconv4x4_xla(x.contiguous(), p["weight_t4"], p["bias_q"],
+                            p.get("slope_q"), act=act, alpha=alpha, ps=ps)
+
+
 def _op_deconvolution(node, inputs, w, ctx):
     _, k, dilation, stride, pad, _ = C.conv_hyperparams(node)
     p = ctx["w"][node.name]
     x = inputs[0]
-    cin, cout = p["weight"].shape[0], p["weight"].shape[1]
-    if ctx.get("planar_convs") and CV.deconv_wants_planar(
-            node, _site_rows(x, ctx), x.shape[3], cin, cout, ctx):
-        act, alpha = _kernel_act(node)
-        return [CV.deconv4x4(x.contiguous(), p["phase_weight"],
-                             p["phase_bias_f32"], p.get("phase_slope_f32"),
-                             act=act, alpha=alpha,
-                             phase_weight_tc=p["phase_weight_tc"])]
+    y = _deconv_site(node, x, p, ctx)
+    if y is not None:
+        return [y]
     y = F.conv_transpose2d(x, p["weight"], p["bias"], stride=stride,
                            padding=pad, dilation=dilation)
     return [_conv_act(node, y, p)]
@@ -235,24 +257,20 @@ def _op_conv_ps(node, inputs, w, ctx):
     """rife.ConvPS / rife.DeconvPS (rewrite fuse_pixelshuffle_into_convs):
     the conv (a 4x4 stride-2 deconv), then PixelShuffle by params[25].  At a
     planar site (the gates on the pre-shuffle channels, as
-    ``planar_ops._op_conv_ps`` asks them) the kernel writes the shuffled
-    tensor itself (B4: ``conv3x3(..., ps=r)``, ``deconv4x4(..., ps=2)``);
-    elsewhere the two ops are composed (``jax_ops._op_conv_ps``)."""
+    ``planar_ops._op_conv_ps`` asks them) and at a DeconvPS site of a bf16
+    run on the card the kernel writes the shuffled tensor itself (B4:
+    ``conv3x3(..., ps=r)``, ``deconv4x4(..., ps=2)``,
+    ``deconv4x4_xla(..., ps=2)``); elsewhere the two ops are composed
+    (``jax_ops._op_conv_ps``)."""
     p = ctx["w"][node.name]
     x = inputs[0]
     r = int(node.p(25, 2))
     h, wid = _site_rows(x, ctx), x.shape[3]
     if node.type == "rife.DeconvPS":
-        cin, cout = p["weight"].shape[0], p["weight"].shape[1]
-        if ctx.get("planar_convs") and CV.deconv_wants_planar(
-                node, h, wid, cin, cout, ctx):
-            act, alpha = _kernel_act(node)
-            return [CV.deconv4x4(x.contiguous(), p["phase_weight"],
-                                 p["phase_bias_f32"],
-                                 p.get("phase_slope_f32"), act=act,
-                                 alpha=alpha,
-                                 phase_weight_tc=p["phase_weight_tc"],
-                                 ps=2)]
+        ps = 2 if r == 2 else 1
+        y = _deconv_site(node, x, p, ctx, ps=ps)
+        if y is not None:
+            return [y if ps == r else F.pixel_shuffle(y, r)]
         y = _op_deconvolution(node, inputs, w, ctx)[0]
     else:
         cout, cin = p["weight"].shape[0], p["weight"].shape[1]
@@ -608,10 +626,13 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
     and the per-channel ``slope_f32`` for the ``conv3x3`` sites (the
     planar kernels' form) and, for a 3x3 conv, ``weight_tc``, the weights
     packed once for the tensor-core kernel (``ops/conv.py``
-    ``pack_weight_tc``); for a 4x4 stride-2 Deconvolution (or
-    ``rife.DeconvPS``) that the gates can send to the kernel, its phase
-    weights (plain and packed) and the 4x
-    tiled f32 bias and slope (``deconv_phase_weights``)."""
+    ``pack_weight_tc``); for a 4x4 stride-2 pad-1 Deconvolution (or
+    ``rife.DeconvPS``) ``weight_t4``, the weights packed once for the
+    deconv kernel (``pack_weight_t4``), and ``bias_q`` / ``slope_q``, the
+    storage-dtype bias and slope as float32 (the kernel's XLA order reads
+    them); where the gates can send it to the planar route, also its phase
+    weights and the 4x tiled f32 bias and slope (``deconv_phase_weights``:
+    the twin's and the f32 kernel's form)."""
     out_ch = weight.shape[1] if node.type in _DECONV_KINDS else weight.shape[0]
     e = {"weight": _tensor(weight, dtype, device),
          "bias": _tensor(bias, dtype, device)}
@@ -626,13 +647,17 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
         e["slope"] = _tensor(np.asarray(slope, np.float32).reshape(1, -1, 1, 1),
                              dtype, device)
         e["slope_f32"] = _tensor(slope_f32, torch.float32, device)
-    if node.type in _DECONV_KINDS:
+    if node.type in _DECONV_KINDS and CV.is_deconv4x4(node):
+        e["weight_t4"] = CV.pack_weight_t4(e["weight"])
+        if bias is not None:
+            e["bias_q"] = e["bias"].float()
+        if slope is not None:
+            e["slope_q"] = e["slope_f32"].to(dtype).float()
         _, k, _, stride, pad, _ = C.conv_hyperparams(node)
         if CV.planar_deconv_ok(weight.shape[0], out_ch, k, stride, pad):
             w3 = CV.deconv_phase_weights(torch.from_numpy(
                 np.array(weight, np.float32)))
             e["phase_weight"] = w3.to(device=device, dtype=dtype)
-            e["phase_weight_tc"] = CV.pack_weight_tc(e["phase_weight"])
             tile = lambda a: None if a is None else np.tile(a, 4)  # noqa: E731
             e["phase_bias_f32"] = _tensor(tile(bias_f32), torch.float32, device)
             if slope_f32 is not None:

@@ -23,10 +23,11 @@ computes, from the math (the kernels themselves live in
 * ``warp_ds2``       <- ``_warp_pallas_u8_ds2_impl`` ->
   ``_warp_kernel_u8_slab_ds2`` (K3): the u8-origin warp of a frame copy
   fused with the exact half-pixel 1/2 downsample (``rife.WarpDs2``)
-* ``warp_spatial``   <- ``warp_pallas_spatial`` (the height-sharded warp):
-  one shard's output rows sampled from the whole (gathered) source at
-  global absolute positions, through ``warp_u8`` or ``warp_feat`` with
-  Ho = the shard's rows (its launches count under those two wrappers)
+* ``warp_spatial``   <- ``warp_pallas_spatial`` (S, the height-sharded
+  warp): one shard's output rows sampled from the whole (gathered) source
+  at global positions that the kernel computes from the shard's raw flow
+  rows and their first row (no positions tensor), u8 or float mode,
+  optionally at the 1/4 taps with the two 0.5/0.5 passes
 
 The shared u8-origin warp, per output pixel and channel:
 
@@ -60,10 +61,11 @@ float32 ``(sx, sy)``; ``warp_render`` takes the mask as (B,H,W) and writes
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises.  ``LAUNCHES`` counts kernel launches per wrapper.
 
-The kernels but ``warp_ds4_pair`` and ``warp_ds2`` take their tiles (and ``warp_feat`` its
-channel groups) from the module constants below at each call;
-tests/test_torch_warp_tiled.py mirrors their addressing on the CPU with the
-same values, and the card tests run them at these and at other tiles.
+The kernels but ``warp_ds4_pair``, ``warp_ds2`` and ``warp_spatial`` take
+their tiles (and ``warp_feat`` its channel groups) from the module
+constants below at each call; tests/test_torch_warp_tiled.py mirrors their
+addressing on the CPU with the same values, and the card tests run them at
+these and at other tiles.
 """
 
 from __future__ import annotations
@@ -88,7 +90,7 @@ FEAT_THREADS = 2_000_000
 FEAT_MIN_GROUP = 8
 
 LAUNCHES = {"warp_pair": 0, "warp_render": 0, "warp_ds4_pair": 0,
-            "warp_feat": 0, "warp_u8": 0, "warp_ds2": 0}
+            "warp_feat": 0, "warp_u8": 0, "warp_ds2": 0, "warp_spatial": 0}
 
 
 def reset_launches() -> None:
@@ -233,6 +235,18 @@ def warp_ds4_u8_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 def warp_ds4_pair_ref(img_a, flow_a, img_b, flow_b):
     """Twin of K7: both fused warp + 1/4 downsample taps of a block entry."""
     return warp_ds4_u8_ref(img_a, flow_a), warp_ds4_u8_ref(img_b, flow_b)
+
+
+def warp_spatial_ref(full, flow, row0: int, *, u8: bool, ds4: bool = False):
+    """Twin of S: the shard's absolute positions (``_grid_positions`` or,
+    ``ds4``, ``ds4_positions`` with ``row0``), the single-warp twin at them
+    over the whole source, and with ``ds4`` the two 0.5/0.5 passes."""
+    if ds4:
+        pos = ds4_positions(flow, row0)
+    else:
+        pos = torch.stack(_grid_positions(flow, row0), dim=1)
+    out = (warp_u8_ref if u8 else warp_feat_ref)(full, pos, abs_pos=True)
+    return half_sum2(out) if ds4 else out
 
 
 def warp_ds2_ref(img: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -407,19 +421,46 @@ def warp_u8(img, flow, abs_pos: bool = False):
 
 
 def warp_spatial(full, flow, row0: int, *, u8: bool, ds4: bool = False):
-    """The height-sharded warp (``warp_pallas_spatial``): ``full`` is the
-    whole source image (B,C,H,W) on the shard's device, ``flow`` the
-    shard's rows [row0, row0 + h) of the raw flow (B,2,h,W) on the image's
-    grid.  Positions are f32 global coordinates (x + flow_x, row + flow_y),
-    the kernel samples only the shard's rows (Ho = h; ``warp_u8`` for a
-    u8-origin frame copy, ``warp_feat`` otherwise), so its rows equal those
-    of the unsharded warp bit for bit.  ``ds4``: the fused warp + 1/4
-    downsample unfused, as under sharding in ``rife_tpu``: the taps' absolute
-    positions, then the two 0.5/0.5 passes (row0 a multiple of 4) ->
-    (B,C,h/4,W/4)."""
-    if ds4:
-        pos = ds4_positions(flow, row0)
-    else:
-        pos = torch.stack(_grid_positions(flow, row0), dim=1)
-    out = (warp_u8 if u8 else warp_feat)(full, pos, abs_pos=True)
-    return half_sum2(out) if ds4 else out
+    """S on CUDA, its twin on the CPU (``warp_pallas_spatial``): ``full`` is
+    the whole source image (B,C,H,W) on the shard's device, ``flow`` the
+    shard's rows [row0, row0 + h) of the raw flow (B,2,h,W) in its dtype on
+    the image's grid.  Output row y samples at the f32 global position (x +
+    flow_x, (row0 + y) + flow_y), so its rows equal those of the unsharded
+    warp bit for bit (``u8``: the u8-origin sampling of a frame copy, C=3;
+    else the float warp).  ``ds4``: the fused warp + 1/4 downsample, as
+    under sharding in ``rife_tpu``: the warps at the taps' positions, then
+    the two 0.5/0.5 passes (row0 a multiple of 4) -> (B,C,h/4,W/4)."""
+    if full.device.type == "cpu":
+        return warp_spatial_ref(full, flow, row0, u8=u8, ds4=ds4)
+    if full.dtype not in _DTYPE_CODE:
+        raise TypeError(f"warp kernels take float32 or bfloat16, got "
+                        f"{full.dtype}")
+    if full.dim() != 4 or flow.dim() != 4:
+        raise ValueError(f"image (B,C,H,W) and flow (B,2,h,W) expected, got "
+                         f"{tuple(full.shape)} and {tuple(flow.shape)}")
+    b, c, h, w = full.shape
+    rows = flow.shape[2]
+    if (flow.shape[0], flow.shape[1], flow.shape[3]) != (b, 2, w):
+        raise ValueError(f"flow {tuple(flow.shape)} does not match image "
+                         f"{tuple(full.shape)}")
+    if flow.device != full.device or flow.dtype != full.dtype:
+        raise ValueError(f"flow on {flow.device}/{flow.dtype}, expected "
+                         f"{full.device}/{full.dtype}")
+    if not (full.is_contiguous() and flow.is_contiguous()):
+        raise ValueError("image and flow must be contiguous")
+    if not (rows >= 1 and 0 <= row0 and row0 + rows <= h):
+        raise ValueError(f"rows [{row0}, {row0 + rows}) outside the "
+                         f"source's {h}")
+    if u8 and c != 3:
+        raise ValueError(f"the u8-origin warp takes 3 channels, got {c}")
+    if ds4 and (rows % 4 or w % 4):
+        raise ValueError(f"the 1/4 warp needs rows and width divisible by 4, "
+                         f"got {rows}x{w}")
+    ho, wo = (rows // 4, w // 4) if ds4 else (rows, w)
+    out = full.new_empty((b, c, ho, wo))
+    group = 3 if u8 else feat_group(b, c, ho, wo)
+    _launch("rife_warp_spatial", [full, flow, out],
+            (b, c, h, w, rows, row0, int(u8), int(ds4),
+             _DTYPE_CODE[full.dtype], group), full.device)
+    LAUNCHES["warp_spatial"] += 1
+    return out

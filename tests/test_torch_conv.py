@@ -166,7 +166,12 @@ def test_cpu_wrapper_takes_twin_without_counting():
     got = CV.conv3x3(t, *args, stride=2, act=CV.ACT_PRELU)
     assert torch.equal(got, CV.conv3x3_ref(t, *args, stride=2,
                                            act=CV.ACT_PRELU))
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0}
+    raw = torch.linspace(-1, 1, 3 * 5 * 16).reshape(3, 5, 4, 4)
+    got = CV.deconv4x4_xla(t[0], CV.pack_weight_t4(raw), torch.ones(5),
+                           act=CV.ACT_RELU)
+    assert torch.equal(got, CV.deconv4x4_xla_ref(t[0], raw, torch.ones(5),
+                                                 act=CV.ACT_RELU))
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
 
 
 def test_non_cpu_tensors_never_take_the_twin():

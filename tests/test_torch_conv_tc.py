@@ -4,9 +4,10 @@ to mini sizes: the packed weights (``pack_weight_tc``) unpack to the OIHW
 weights bit for bit, the twin over the packed layout equals ``conv3x3_ref``
 bit for bit, the deconv twin (``deconv4x4_ref``, the phases interleaved)
 equals ``deconv4x4``'s interleave of the phase conv, and a Python mirror of
-the kernel's epilogue addressing (channel groups, 16-column tiles, 8-column
-stores, the deconv's phase pairs, the PixelShuffle rows of B4) puts every
-value where the twins do.  The
+the conv kernel's epilogue addressing (channel groups, 16-column tiles,
+8-column stores, the PixelShuffle rows of B4) and one of the deconv kernel's
+(``csrc/deconv.cu``: phase rows a warp, interleaved segments, the
+PixelShuffle of B4's deconv form) put every value where the twins do.  The
 kernel itself against the twins: tests/test_torch_cuda.py, on the card."""
 
 import numpy as np
@@ -92,46 +93,28 @@ def test_packed_twin_equals_twin(sites, i):
                                            stride=stride, act=act))
 
 
-def kernel_groups(cout, phase_o, ps=1):
-    """The kernel's channel groups (``rife_conv3x3_tc``): at most 64
-    channels; a deconv's two groups are its two phase rows, a
-    PixelShuffle's hold whole blocks of ps^2 channels."""
-    if phase_o:
-        n = 1 if cout <= 64 else 2
-        size = (cout + n - 1) // n
-    else:
-        blk = ps * ps
-        n = (cout + 63) // 64
-        size = -(-(cout // blk) // n) * blk
-    assert size <= 64 and (not phase_o or n == 1 or size == 2 * phase_o)
+def kernel_groups(cout, ps=1, most=64):
+    """The conv and deconv kernels' channel groups (``rife_conv3x3_tc``:
+    at most 64 channels; ``rife_deconv4x4``: ``most`` 24), whole blocks of
+    ps^2 channels each."""
+    blk = ps * ps
+    n = -(-cout // most)
+    size = -(-(cout // blk) // n) * blk
+    assert size <= most
     return [(g * size, min(size, cout - g * size)) for g in range(n)]
 
 
-def out_row(s, phase_o, ps):
-    """``csrc/conv.cu`` ``out_row``: (cc, dy, channel of column k)."""
-    if phase_o == 0:
-        return s // ps, s % ps, lambda k: s * ps + k
-    if ps == 1:
-        py, cc = s // phase_o, s % phase_o
-        return cc, py, lambda k: 2 * py * phase_o + k * phase_o + cc
-    q = phase_o // 4
-    d, cc = s // q, s % q
-    base = 2 * (d >> 1) * phase_o + 4 * cc + 2 * (d & 1)
-    return cc, d, lambda k: base + (k // 2) * phase_o + k % 2
-
-
-def mirror_store(y, phase_o, span, ps=1):
-    """Place the (B, N, Ho, Wo) per-channel results (N phase channels for a
-    deconv) as the kernel's epilogue does: per channel group, per tile of
-    ``span`` output columns (16, the m16 rows of an MMA) and row, lanes of 8
-    output columns; an interleaved output (a deconv's phases, a
-    PixelShuffle(ps), or both) row by row of R = (2 if deconv) x ps
-    staged channels, column R x + k from the k-th."""
+def mirror_store(y, span, ps=1):
+    """Place the (B, N, Ho, Wo) per-channel results as ``csrc/conv.cu``'s
+    epilogue does: per channel group, per tile of ``span`` output columns
+    (16, the m16 rows of an MMA) and row, lanes of 8 output columns; a
+    PixelShuffle(ps) output row by row of ps staged channels (``out_row``:
+    row s is channel s // ps, row offset s % ps, its column ps x + k from
+    staged channel s ps + k)."""
     b, n_ch, ho, wo = y.shape
-    rr = (2 if phase_o else 1) * ps
-    out_ch = (phase_o or n_ch) // (ps * ps)
-    out = torch.full((b, out_ch, rr * ho, rr * wo), float("nan"))
-    for g0, n_valid in kernel_groups(n_ch, phase_o, ps):
+    rr = ps
+    out = torch.full((b, n_ch // (ps * ps), rr * ho, rr * wo), float("nan"))
+    for g0, n_valid in kernel_groups(n_ch, ps):
         for ox0 in range(0, wo, span):
             for oy in range(ho):
                 ob = torch.zeros(b, 64, span)  # a warp's staged row
@@ -150,13 +133,65 @@ def mirror_store(y, phase_o, span, ps=1):
                     continue
                 chunks = span * rr // 8
                 for idx in range((n_valid // rr) * chunks):
-                    cc, dy, chan = out_row(g0 // rr + idx // chunks, phase_o,
-                                           ps)
+                    s = g0 // rr + idx // chunks
+                    cc, dy = s // ps, s % ps
                     col0 = 8 * (idx % chunks)
                     for c in range(col0, col0 + 8):
                         if rr * ox0 + c < rr * wo:
                             out[:, cc, rr * oy + dy, rr * ox0 + c] = \
-                                ob[:, chan(c % rr) - g0, c // rr]
+                                ob[:, s * ps + c % rr - g0, c // rr]
+    return out
+
+
+def mirror_deconv_store(y, ps=1):
+    """Place a deconv's (B, O, 2H, 2W) output phase by phase as
+    ``csrc/deconv.cu``'s epilogue does: per channel group of at most 24 (NT
+    n8 tiles; MT = 2 m16 tiles a warp), per tile of 4 input rows x 32
+    columns, warp (row w // 2, phase row py = w % 2) stages phase (py, px)
+    of channel n at input column pix in segment n, column 2 pix + px (ps 1)
+    or segment 2 (n // 4) + (n // 2) % 2, column 4 pix + 2 px + n % 2 (ps
+    2), then writes each segment as 8-column vectors to output channel s
+    (ps 1) or s // 2 (ps 2), row ps (2 m + py) + (s % 2 if ps 2)."""
+    b, o, h2, w2 = y.shape
+    h, w = h2 // 2, w2 // 2
+    out = torch.full((b, o // (ps * ps), 2 * ps * h, 2 * ps * w), float("nan"))
+    for g0, n_valid in kernel_groups(o, ps, most=24):
+        mt, kn = 2, 8 * -(-n_valid // 8)
+        tw = 16 * mt
+        seg_len = 32 * mt * ps
+        n_segs = kn if ps == 1 else kn // 2
+        for m0 in range(0, h, 4):
+            for tx0 in range(0, w, tw):
+                for warp in range(8):
+                    m, py = m0 + warp // 2, warp % 2
+                    stage = torch.zeros(b, n_segs, seg_len)
+                    for px in (0, 1):
+                        for n in range(n_valid):
+                            xs = range(tx0, min(tx0 + tw, w))
+                            pix = torch.tensor([x - tx0 for x in xs])
+                            if m >= h or not len(pix):
+                                continue
+                            vals = y[:, g0 + n, 2 * m + py,
+                                     [2 * x + px for x in xs]]
+                            if ps == 1:
+                                seg, cols = n, 2 * pix + px
+                            else:
+                                seg = (n >> 2) * 2 + ((n >> 1) & 1)
+                                cols = 4 * pix + 2 * px + (n & 1)
+                            stage[:, seg, cols] = vals
+                    if m >= h:
+                        continue
+                    segs = n_valid if ps == 1 else n_valid // 2
+                    x0 = 2 * ps * tx0
+                    for idx in range(segs * (seg_len // 8)):
+                        vecs = seg_len // 8
+                        sg, c0 = idx // vecs, 8 * (idx % vecs)
+                        ch = g0 // (ps * ps) + (sg if ps == 1 else sg >> 1)
+                        row = ps * (2 * m + py) + (0 if ps == 1 else sg & 1)
+                        k = min(8, 2 * ps * w - x0 - c0)
+                        if k > 0:
+                            out[:, ch, row, x0 + c0:x0 + c0 + k] = \
+                                stage[:, sg, c0:c0 + k]
     return out
 
 
@@ -170,13 +205,13 @@ def test_kernel_store_addressing(sites, i):
     deconv = sites[i][-1]
     for cut in (0, 6):
         xs_c = [x[..., :MINI_HW[1] - cut].contiguous() for x in xs]
-        y = CV.conv3x3_ref(xs_c, weight, bias, slope,
-                           stride=1 if deconv else stride, act=act)
         if deconv:
-            got = mirror_store(y, weight.shape[0] // 4, 16)
             want = CV.deconv4x4_ref(xs_c[0], weight, bias, slope, act=act)
+            got = mirror_deconv_store(want)
         else:
-            got, want = mirror_store(y, 0, 16), y
+            want = CV.conv3x3_ref(xs_c, weight, bias, slope, stride=stride,
+                                  act=act)
+            got = mirror_store(want, 16)
         assert not torch.isnan(got).any()
         assert torch.equal(got, want)
 
@@ -184,14 +219,15 @@ def test_kernel_store_addressing(sites, i):
 @pytest.mark.parametrize("case", [
     ("conv", 16, 16, 1), ("conv", 8, 96, 1), ("conv", 12, 68, 2),
     ("conv", 6, 36, 1), ("deconv", 12, 4 * 8, 1), ("deconv", 8, 4 * 24, 1),
-    ("deconv", 16, 4 * 32, 1)])
+    ("deconv", 16, 4 * 32, 1), ("deconv", 16, 4 * 128, 1)])
 def test_kernel_ps_store_addressing(case):
     """B4: the same mirror with ``ps=2`` writes every output once, where the
     twins put them (``pixel_shuffle`` of ``conv3x3_ref`` / of
     ``deconv4x4_ref``): the v1 head (16 -> 16), channel groups that split
-    the output (96, 68: two groups of whole 2x2 blocks; a deconv's 4 x 24
-    and 4 x 32 phase channels: one phase row a group), at widths that leave
-    a ragged last tile and, at stride 2, odd output sizes."""
+    the output (96, 68: two groups of whole 2x2 blocks), deconvs of 8 to
+    128 output channels (v1's up0: six groups of 22 and the rest;
+    ``mirror_deconv_store``), at widths that leave a ragged last tile and,
+    at stride 2, odd output sizes."""
     kind, cin, cout, stride = case
     rng = np.random.default_rng(cin * cout)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))  # noqa: E731
@@ -202,12 +238,12 @@ def test_kernel_ps_store_addressing(case):
             weight = CV.deconv_phase_weights(raw)
         else:
             weight = t(rng.normal(size=(cout, cin, 3, 3)) * 0.3)
-        y = CV.conv3x3_ref([x], weight, stride=stride)
         if kind == "deconv":
-            got = mirror_store(y, cout // 4, 16, ps=2)
+            got = mirror_deconv_store(CV.deconv4x4_ref(x, weight), ps=2)
             want = CV.deconv4x4_ref(x, weight, ps=2)
         else:
-            got = mirror_store(y, 0, 16, ps=2)
+            got = mirror_store(CV.conv3x3_ref([x], weight, stride=stride), 16,
+                               ps=2)
             want = CV.conv3x3_ref([x], weight, stride=stride, ps=2)
         assert got.shape == want.shape
         assert not torch.isnan(got).any()
@@ -248,8 +284,9 @@ def test_deconv_twin_equals_interleaved_phase_conv(sites, i, dtype):
 
 
 def test_session_weights_are_packed_once(tmp_path):
-    """``prepare_weights`` packs every 3x3 conv's weights and every planar
-    deconv's phase weights once; they unpack to the plain tensors."""
+    """``prepare_weights`` packs every 3x3 conv's weights and every 4x4
+    stride-2 deconv's weights (``pack_weight_t4``) once; they unpack to the
+    plain tensors."""
     d = write_v23_params(tmp_path, (8, 8, 8, 8, 4))
     sess = RIFE(str(d), device="cpu", dtype=torch.bfloat16)
     n_conv = n_deconv = 0
@@ -262,10 +299,8 @@ def test_session_weights_are_packed_once(tmp_path):
                 assert torch.equal(
                     CV.unpack_weight_tc(e["weight_tc"], w.shape[1]), w)
                 n_conv += 1
-            if "phase_weight" in e:
-                pw = e["phase_weight"]
+            if "weight_t4" in e:
                 assert torch.equal(
-                    CV.unpack_weight_tc(e["phase_weight_tc"], pw.shape[1]),
-                    pw)
+                    CV.unpack_weight_t4(e["weight_t4"], w.shape[0]), w)
                 n_deconv += 1
     assert n_conv > 20 and n_deconv >= 4

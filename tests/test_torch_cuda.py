@@ -375,8 +375,16 @@ def every_kernel(device):
         outs.append(CV.conv3x3([img], weight, bias, stride=2,
                                act=CV.ACT_RELU,
                                weight_tc=CV.pack_weight_tc(weight)))
-        outs.append(CV.deconv4x4(img, weight, bias, act=CV.ACT_NONE,
-                                 phase_weight_tc=CV.pack_weight_tc(weight)))
+        raw = (torch.randn(16, 6, 4, 4, generator=torch.Generator()
+                           .manual_seed(24)) * 0.2).to(device, dtype)
+        outs.append(CV.deconv4x4(img, CV.deconv_phase_weights(raw), bias,
+                                 act=CV.ACT_NONE,
+                                 weight_t4=CV.pack_weight_t4(raw)))
+        outs.append(W.warp_spatial(img, flow[:, :, 8:24].contiguous(), 8,
+                                   u8=False, ds4=True))
+        if dtype == torch.bfloat16:
+            outs.append(CV.deconv4x4_xla(img, CV.pack_weight_t4(raw),
+                                         bias[:6], act=CV.ACT_RELU))
     torch.cuda.synchronize(device)
     return [o.cpu() for o in outs]
 
@@ -438,40 +446,159 @@ def test_conv_kernel_matches_twin(cuda_device, parts, cout, stride, act, h,
                      weight_tc=packed)
     want = CV.conv3x3_ref(xs, weight, bias, slope, stride=stride, act=act)
     torch.cuda.synchronize()
-    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0}
+    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0, "deconv4x4": 0}
     scale = CV.conv3x3_ref([x.float().abs() for x in xs],
                            weight.float().abs(), stride=stride)
     check(got, want, f32_rel=1e-5, scale=scale)
 
 
+def deconv_case(seed, b, cin, co, h, w, dtype, device):
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
+        device=device, dtype=dt).contiguous()
+    x = t(rng.normal(size=(b, cin, h, w)), dtype)
+    raw = t(rng.normal(size=(cin, co, 4, 4)) * (1.0 / (2.0 * cin ** 0.5)),
+            dtype)
+    bias = t(rng.normal(size=co) * 0.3, torch.float32)
+    slope = t(rng.uniform(0, 0.5, co), torch.float32)
+    return x, raw, bias, slope
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("cin,co,h,w", [
     (32, 4, 68, 120),    # a v2.3 fusionnet deconv site, mini size
-    (12, 24, 17, 30),    # two phase groups, W % 4 != 0
-    (9, 32, 20, 44),     # 128 phase channels
+    (12, 24, 17, 30),    # W % 4 != 0
+    (9, 32, 20, 44),
     (5, 3, 9, 13),
 ])
 def test_deconv_kernel_matches_twin(cuda_device, cin, co, h, w, dtype):
-    """The deconv form: in bf16 one launch writes the interleaved phases."""
+    """A planar deconv site (``deconv4x4``): in bf16 one launch of the
+    deconv kernel writes the interleaved phases, bit for bit what the phase
+    conv (``conv3x3`` over the phase weights) gives interleaved; in
+    f32 the phase conv on the CUDA cores."""
     from rife_tpu_torch.ops import conv as CV
 
-    rng = np.random.default_rng(12)
-    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
-        device=cuda_device, dtype=dt).contiguous()
-    x = t(rng.normal(size=(2, cin, h, w)), dtype)
-    w3 = CV.deconv_phase_weights(torch.from_numpy(
-        rng.normal(size=(cin, co, 4, 4)).astype(np.float32) * 0.3))
-    w3 = w3.to(device=cuda_device, dtype=dtype).contiguous()
-    bias = t(np.tile(rng.normal(size=co), 4), torch.float32)
-    slope = t(np.tile(rng.uniform(0, 0.5, co), 4), torch.float32)
+    x, raw, bias, slope = deconv_case(12, 2, cin, co, h, w, dtype,
+                                      cuda_device)
+    w3 = CV.deconv_phase_weights(raw).contiguous()
+    b4, s4 = bias.repeat(4), slope.repeat(4)
     CV.reset_launches()
-    got = CV.deconv4x4(x, w3, bias, slope, act=CV.ACT_PRELU,
-                       phase_weight_tc=CV.pack_weight_tc(w3))
-    want = CV.deconv4x4_ref(x, w3, bias, slope, act=CV.ACT_PRELU)
+    got = CV.deconv4x4(x, w3, b4, s4, act=CV.ACT_PRELU,
+                       weight_t4=CV.pack_weight_t4(raw))
+    want = CV.deconv4x4_ref(x, w3, b4, s4, act=CV.ACT_PRELU)
     torch.cuda.synchronize()
-    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0}
+    bf16 = dtype == torch.bfloat16
+    assert {k: v for k, v in CV.LAUNCHES.items() if v} == (
+        {"deconv4x4": 1} if bf16 else {"conv3x3": 1})
     check(got, want, f32_rel=1e-5,
           scale=CV.deconv4x4_ref(x.float().abs(), w3.float().abs()))
+    if bf16:
+        pr9 = CV.interleave_phases(CV.conv3x3(
+            [x], w3, b4, s4, act=CV.ACT_PRELU,
+            weight_tc=CV.pack_weight_tc(w3)))
+        assert torch.equal(got, pr9)
+
+
+# every 4x4 stride-2 deconv site of a bf16 step of the three families at
+# 1080p (v2.3 -u at 4K), at B=2: (cin, O, ps, act, H, W, XLA order)
+DECONV_SITES = [
+    (192, 24, 2, 0, 34, 60, True), (128, 24, 2, 0, 68, 120, True),   # v4.6
+    (96, 24, 2, 0, 136, 240, True), (64, 24, 2, 0, 272, 480, True),
+    (384, 4, 1, 0, 34, 60, True), (256, 4, 1, 0, 68, 120, True),     # v2.3
+    (192, 4, 1, 0, 136, 240, False), (96, 4, 1, 0, 272, 480, False),
+    (1024, 256, 1, 3, 34, 60, True), (512, 128, 1, 3, 68, 120, True),
+    (256, 64, 1, 3, 136, 240, True), (128, 32, 1, 3, 272, 480, True),
+    (32, 4, 1, 0, 544, 960, False),
+    (1024, 256, 1, 3, 68, 120, True), (512, 128, 1, 3, 136, 240, True),
+    (256, 64, 1, 3, 272, 480, True), (128, 32, 1, 3, 544, 960, True),  # -u
+    (32, 4, 1, 0, 1088, 1920, False),
+    (512, 128, 1, 3, 68, 120, True), (256, 64, 1, 3, 136, 240, True),  # v1
+    (128, 16, 1, 3, 272, 480, False),
+]
+
+
+def xla_epilogue(base, bias, slope, act, ps):
+    """XLA's epilogue on the deconv kernel's own unshuffled sums rounded to
+    bf16 (its XLA-order output without bias or activation): the bf16 bias,
+    the activation in bf16 (leaky at bf16(0.2)), then the shuffle."""
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    y = base + bias.to(base.dtype).reshape(1, -1, 1, 1)
+    y = CV.activate_storage(y, act, 0.2, slope)
+    return F.pixel_shuffle(y, ps) if ps > 1 else y
+
+
+@pytest.mark.parametrize("site", DECONV_SITES)
+def test_deconv_kernel_at_every_site(cuda_device, site):
+    """bf16, B=2: the deconv kernel against its plain version
+    (``deconv_t4_ref``) at the conv bar; in XLA's order, which rounds
+    twice, the sums (the kernel without bias or activation) are held to
+    that bar and the output with them bit for bit to XLA's epilogue applied
+    to those sums; in the planar order bit for bit with the phase conv
+    interleaved (shuffled), wherever that conv's resident weights fit (Cin
+    <= 128)."""
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    cin, co, ps, act, h, w, xla = site
+    x, raw, bias, slope = deconv_case(cin + co, 2, cin, co, h, w,
+                                      torch.bfloat16, cuda_device)
+    packed = CV.pack_weight_t4(raw)
+    if xla:
+        bias, slope = (v.to(torch.bfloat16).float() for v in (bias, slope))
+    CV.reset_launches()
+    if xla:
+        got = CV.deconv4x4_xla(x, packed, bias, slope, act=act, ps=ps)
+    else:
+        got = CV.deconv4x4(x, None, bias.repeat(4), slope.repeat(4), act=act,
+                           weight_t4=packed, ps=ps)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in CV.LAUNCHES.items() if v} == {"deconv4x4": 1}
+    scale = CV.deconv_t4_ref(x.float().abs(), CV.pack_weight_t4(
+        raw.float().abs()), ps=ps)
+    if xla:
+        base = CV.deconv4x4_xla(x, packed)
+        check(base, CV.deconv_t4_ref(x, packed, xla=True),
+              scale=F.pixel_unshuffle(scale, ps) if ps > 1 else scale)
+        assert torch.equal(got, xla_epilogue(base, bias, slope, act, ps))
+    else:
+        check(got, CV.deconv_t4_ref(x, packed, bias, slope, act=act, ps=ps),
+              scale=scale)
+    if cin <= 128:
+        w3 = CV.deconv_phase_weights(raw).contiguous()
+        planar = CV.deconv4x4(x, w3, bias.repeat(4), slope.repeat(4),
+                              act=act, weight_t4=packed, ps=ps)
+        y = CV.interleave_phases(CV.conv3x3(
+            [x], w3, bias.repeat(4), slope.repeat(4), act=act,
+            weight_tc=CV.pack_weight_tc(w3)))
+        assert torch.equal(planar, F.pixel_shuffle(y, ps) if ps > 1 else y)
+
+
+def test_deconv_rows_do_not_depend_on_the_window_or_the_batch(cuda_device):
+    """The C15 repair: rows of a window of the input (a shard's rows and
+    their halo) and items of a B=2 batch come out of the deconv kernel as
+    they do from the whole frame and from a B=8 batch, bit for bit, in both
+    orders."""
+    from rife_tpu_torch.ops import conv as CV
+
+    x, raw, bias, slope = deconv_case(3, 8, 64, 24, 272, 480, torch.bfloat16,
+                                      cuda_device)
+    packed = CV.pack_weight_t4(raw)
+    bq = bias.to(torch.bfloat16).float()
+    for run in (lambda t: CV.deconv4x4_xla(t, packed, bq, act=CV.ACT_NONE,
+                                           ps=2),
+                lambda t: CV.deconv4x4(t, None, bias.repeat(4), act=1,
+                                       weight_t4=packed)):
+        whole = run(x)
+        r = whole.shape[2] // x.shape[2]  # output rows an input row
+        for s, e in ((0, 69), (67, 137), (135, 205), (203, 272)):
+            win = run(x[:, :, s:e].contiguous())
+            lo = 0 if s == 0 else 1  # the halo row above is dropped
+            hi = e - s if e == 272 else e - s - 1
+            assert torch.equal(win[:, :, r * lo:r * hi],
+                               whole[:, :, r * (s + lo):r * (s + hi)])
+        assert torch.equal(run(x[2:4].contiguous()), whole[2:4])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -480,13 +607,15 @@ def test_deconv_kernel_matches_twin(cuda_device, cin, co, h, w, dtype):
     ("conv", 8, 96, 1, 33, 61),      # two groups of whole 2x2 blocks
     ("conv", 12, 68, 2, 22, 38),     # 17 blocks over two groups, stride 2
     ("conv", 5, 12, 1, 9, 13),       # odd sizes, unaligned rows
-    ("deconv", 64, 96, 1, 68, 120),  # v4.6 block tail: 24 channels, 2 groups
+    ("deconv", 64, 96, 1, 68, 120),  # v4.6 block tail: 24 channels
     ("deconv", 12, 32, 1, 17, 30),
 ])
 def test_conv_ps_kernel(cuda_device, kind, cin, cout, stride, h, w, dtype):
-    """B4 (``ps=2``): one launch counted as ``conv3x3_ps``, bit for bit the
-    plain kernel's output shuffled (only the write addresses move), and
-    against its twin at the conv bar."""
+    """B4 (``ps=2``): one launch, bit for bit the same kernel's unshuffled
+    output shuffled (only the write addresses move), and against its twin
+    at the conv bar; the conv form counts as ``conv3x3_ps``, the deconv
+    form in bf16 as ``deconv4x4`` (the deconv kernel), in f32 as
+    ``conv3x3_ps`` (the phase conv)."""
     from rife_tpu_torch.ops import conv as CV
 
     F = torch.nn.functional
@@ -495,23 +624,29 @@ def test_conv_ps_kernel(cuda_device, kind, cin, cout, stride, h, w, dtype):
         device=cuda_device, dtype=dt).contiguous()
     x = t(rng.normal(size=(2, cin, h, w)), dtype)
     if kind == "deconv":
-        weight = CV.deconv_phase_weights(torch.from_numpy(rng.normal(
-            size=(cin, cout // 4, 4, 4)).astype(np.float32) * 0.3))
-        weight = weight.to(device=cuda_device, dtype=dtype).contiguous()
+        raw = t(rng.normal(size=(cin, cout // 4, 4, 4)) * 0.3, dtype)
+        weight = CV.deconv_phase_weights(raw).contiguous()
     else:
         weight = t(rng.normal(size=(cout, cin, 3, 3)) * 0.2, dtype)
-    bias = t(rng.normal(size=cout), torch.float32)
-    slope = t(rng.uniform(0, 0.5, cout), torch.float32)
-    packed = CV.pack_weight_tc(weight)
+    # a deconv has one bias and slope an output channel: the phase form
+    # tiles them 4x (deconv_phase_weights), and the kernel reads the first O
+    reps = 4 if kind == "deconv" else 1
+    bias = t(np.tile(rng.normal(size=cout // reps), reps), torch.float32)
+    slope = t(np.tile(rng.uniform(0, 0.5, cout // reps), reps),
+              torch.float32)
     if kind == "deconv":
+        packed = CV.pack_weight_t4(raw)
+
         def run(ps):
             return CV.deconv4x4(x, weight, bias, slope, act=CV.ACT_PRELU,
-                                phase_weight_tc=packed, ps=ps)
+                                weight_t4=packed, ps=ps)
         want = CV.deconv4x4_ref(x, weight, bias, slope, act=CV.ACT_PRELU,
                                 ps=2)
         scale = CV.deconv4x4_ref(x.float().abs(), weight.float().abs(),
                                  ps=2)
     else:
+        packed = CV.pack_weight_tc(weight)
+
         def run(ps):
             return CV.conv3x3([x], weight, bias, slope, stride=stride,
                               act=CV.ACT_PRELU, weight_tc=packed, ps=ps)
@@ -522,7 +657,9 @@ def test_conv_ps_kernel(cuda_device, kind, cin, cout, stride, h, w, dtype):
     CV.reset_launches()
     got = run(2)
     torch.cuda.synchronize()
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 1}
+    counter = ("deconv4x4" if kind == "deconv" and dtype == torch.bfloat16
+               else "conv3x3_ps")
+    assert {k: v for k, v in CV.LAUNCHES.items() if v} == {counter: 1}
     assert torch.equal(got, F.pixel_shuffle(run(1), 2))
     check(got, want, f32_rel=1e-5, scale=scale)
 
@@ -568,7 +705,7 @@ def test_failed_launch_raises(cuda_device):
     with pytest.raises(RuntimeError, match="CUDA error"):
         CV.conv3x3([torch.zeros(4100, 1, 2, 2, device=cuda_device)],
                    torch.zeros(256, 1, 3, 3, device=cuda_device))
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
     bf = dict(device=cuda_device, dtype=torch.bfloat16)
     w = torch.zeros(64, 512, 3, 3, **bf)
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -576,7 +713,31 @@ def test_failed_launch_raises(cuda_device):
                    weight_tc=CV.pack_weight_tc(w))
     with pytest.raises(ValueError, match="weight_tc"):
         CV.conv3x3([torch.zeros(1, 512, 8, 8, **bf)], w)
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+    # the deconv kernel: bf16 only (f32 keeps its routes), its activations,
+    # a PixelShuffle of 2 and whole 2x2 blocks, the packed weights
+    raw = torch.zeros(8, 6, 4, 4, **bf)
+    x = torch.zeros(1, 8, 4, 4, **bf)
+    with pytest.raises(TypeError, match="bf16"):
+        CV.deconv4x4_xla(x.float(), CV.pack_weight_t4(raw.float()))
+    with pytest.raises(ValueError, match="activation"):
+        CV.deconv4x4_xla(x, CV.pack_weight_t4(raw), act=7)
+    with pytest.raises(ValueError, match="PixelShuffle"):
+        CV.deconv4x4_xla(x, CV.pack_weight_t4(raw), ps=2)
+    with pytest.raises(ValueError, match="weight_t4"):
+        CV.deconv4x4(x, None, weight_t4=None)
+    with pytest.raises(ValueError, match="slope"):
+        CV.deconv4x4_xla(x, CV.pack_weight_t4(raw), act=CV.ACT_PRELU)
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+    # S: rows outside the source, a 1/4 warp of rows not divisible by 4
+    W.reset_launches()
+    img = torch.zeros(1, 3, 16, 16, **bf)
+    with pytest.raises(ValueError, match="outside"):
+        W.warp_spatial(img, torch.zeros(1, 2, 8, 16, **bf), 12, u8=True)
+    with pytest.raises(ValueError, match="divisible by 4"):
+        W.warp_spatial(img, torch.zeros(1, 2, 6, 16, **bf), 4, u8=True,
+                       ds4=True)
+    assert W.LAUNCHES["warp_spatial"] == 0
 
 
 def test_failed_build_raises_on_cuda(cuda_device, tmp_path, monkeypatch):
@@ -803,9 +964,11 @@ def _reset():
                                     (True, True), (False, True)])
 def test_sharded_warp_rows_equal_the_unsharded_kernel(cuda_device, u8, ds4,
                                                       dtype):
-    """warp_spatial (the gather kernel at absolute positions, Ho = a
-    shard's rows) gives each shard's rows of the unsharded kernel's output
-    bit for bit, one launch of the kernel a shard."""
+    """warp_spatial (S: the positions computed in the kernel from a shard's
+    flow rows and row0) gives each shard's rows of the unsharded kernel's
+    output bit for bit, and equals its twin, one launch a shard; the rows
+    include a boundary at row 4 and one at row 124 (row0 on a multiple of
+    4 near either edge), and the flows leave the frame."""
     b, h, w = 2, 128, 200
     ia, fa, _, _, _ = inputs(11, b, h, w, dtype, cuda_device)
     img = ia if u8 else ia.repeat(1, 3, 1, 1).contiguous()  # C = 9
@@ -814,11 +977,16 @@ def test_sharded_warp_rows_equal_the_unsharded_kernel(cuda_device, u8, ds4,
              if ds4 else ref(img, fa))
     W.reset_launches()
     k = 4 if ds4 else 1
-    for s, e in ((0, 32), (32, 96), (96, 128)):
-        got = W.warp_spatial(img, fa[:, :, s:e], s, u8=u8, ds4=ds4)
+    bounds = ((0, 4), (4, 32), (32, 96), (96, 124), (124, 128))
+    for s, e in bounds:
+        rows = fa[:, :, s:e].contiguous()
+        got = W.warp_spatial(img, rows, s, u8=u8, ds4=ds4)
         assert torch.equal(got, whole[:, :, s // k:e // k])
-    name = "warp_u8" if u8 else "warp_feat"
-    assert W.LAUNCHES[name] == 3
+        assert torch.equal(got, W.warp_spatial_ref(img.cpu(), rows.cpu(), s,
+                                                   u8=u8, ds4=ds4).to(
+                                                       got.device))
+    assert {k: v for k, v in W.LAUNCHES.items() if v} == {
+        "warp_spatial": len(bounds)}
 
 
 def test_batch_sharding_on_one_card_twice(cuda_device, model_dir):
@@ -864,8 +1032,9 @@ def test_height_sharding_on_one_card(cuda_device, v23_dir, monkeypatch,
     got = sharded.process_batch(a, b, ts)
     counts = _counts()
     assert counts == sharded.kernel_sites(128, 96)
-    assert counts["warp_u8"] > 0 and not {
-        "warp_pair", "warp_ds4_pair", "warp_render", "warp_ds2"} & set(counts)
+    assert counts["warp_spatial"] > 0 and not {
+        "warp_pair", "warp_ds4_pair", "warp_render", "warp_ds2", "warp_u8",
+        "warp_feat"} & set(counts)
     per = 2 // mesh[0]
     want = np.concatenate([sess.process_batch(a[i:i + per], b[i:i + per],
                                               ts[:per])

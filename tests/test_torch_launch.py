@@ -101,35 +101,51 @@ def warp_calls(dtype):
         ("warp_u8", "rife_warp_single", lambda: W.warp_u8(img(), flow())),
         ("warp_u8", "rife_warp_single",
          lambda: W.warp_u8(img(), pos, abs_pos=True)),
+        ("warp_spatial", "rife_warp_spatial",
+         lambda: W.warp_spatial(img(), flow()[:, :, 4:].contiguous(), 4,
+                                u8=True)),
+        ("warp_spatial", "rife_warp_spatial",
+         lambda: W.warp_spatial(feat, flow()[:, :, :4].contiguous(), 0,
+                                u8=False, ds4=True)),
     ]
 
 
 def conv_calls(dtype):
     """(counter, C function, thunk) for conv3x3 (one and three parts) and
-    deconv4x4, each also in its PixelShuffle form (B4, ``conv3x3_ps``)."""
-    c_fn = "rife_conv3x3_tc" if dtype == torch.bfloat16 else "rife_conv3x3"
+    deconv4x4, each also in its PixelShuffle form (B4, ``conv3x3_ps``), and
+    in bf16 deconv4x4_xla: a bf16 deconv launches the deconv kernel, an f32
+    one the phase conv."""
+    bf16 = dtype == torch.bfloat16
+    c_fn = "rife_conv3x3_tc" if bf16 else "rife_conv3x3"
+    d_fn = "rife_deconv4x4" if bf16 else c_fn
     parts = [on_card(2, c, 8, 12, dtype=dtype) for c in (3, 3, 4)]
     weight = on_card(16, 10, 3, 3, dtype=dtype)
     bias, slope = on_card(16), on_card(16)
-    phase = on_card(4 * 6, 10, 3, 3, dtype=dtype)
-    phase8 = on_card(4 * 8, 10, 3, 3, dtype=dtype)
-    return [
+    raw6, raw8 = (torch.rand(10, o, 4, 4).to(dtype) for o in (6, 8))
+    phase, phase8 = (CV.deconv_phase_weights(r).as_subclass(OnCard)
+                     for r in (raw6, raw8))
+    t4, t48 = (CV.pack_weight_t4(r).as_subclass(OnCard) for r in (raw6, raw8))
+    calls = [
         ("conv3x3", c_fn, lambda: CV.conv3x3(
             parts, weight, bias, slope, stride=2, act=CV.ACT_PRELU,
             weight_tc=CV.pack_weight_tc(weight))),
         ("conv3x3", c_fn, lambda: CV.conv3x3(
             [torch.cat(parts, 1)], weight, bias,
             weight_tc=CV.pack_weight_tc(weight))),
-        ("conv3x3", c_fn, lambda: CV.deconv4x4(
+        ("deconv4x4" if bf16 else "conv3x3", d_fn, lambda: CV.deconv4x4(
             torch.cat(parts, 1), phase, on_card(24), act=CV.ACT_RELU,
-            phase_weight_tc=CV.pack_weight_tc(phase))),
+            weight_t4=t4)),
         ("conv3x3_ps", c_fn, lambda: CV.conv3x3(
             [torch.cat(parts, 1)], weight, bias, slope, act=CV.ACT_PRELU,
             weight_tc=CV.pack_weight_tc(weight), ps=2)),
-        ("conv3x3_ps", c_fn, lambda: CV.deconv4x4(
-            torch.cat(parts, 1), phase8, on_card(32),
-            phase_weight_tc=CV.pack_weight_tc(phase8), ps=2)),
+        ("deconv4x4" if bf16 else "conv3x3_ps", d_fn, lambda: CV.deconv4x4(
+            torch.cat(parts, 1), phase8, on_card(32), weight_t4=t48, ps=2)),
     ]
+    if bf16:
+        calls.append(("deconv4x4", d_fn, lambda: CV.deconv4x4_xla(
+            torch.cat(parts, 1), t48, on_card(8), on_card(8),
+            act=CV.ACT_PRELU, ps=2)))
+    return calls
 
 
 def counts():

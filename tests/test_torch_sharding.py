@@ -186,7 +186,7 @@ def spy_wrappers(monkeypatch, calls):
         monkeypatch.setattr(mod, name, spy)
 
     for name in ("warp_feat", "warp_u8", "warp_pair", "warp_ds4_pair",
-                 "warp_render", "warp_ds2"):
+                 "warp_render", "warp_ds2", "warp_spatial"):
         wrap(W, name)
     wrap(CV, "conv3x3")
 
@@ -202,7 +202,7 @@ def test_kernel_sites_of_sharded_steps(model_dirs, monkeypatch, model, modes,
     """``ShardedRIFE.kernel_sites`` (``plan.kernel_sites`` per data shard)
     counts what one step hands the wrappers: per data shard a step; height-sharded, per non-empty shard
     each net's conv sites (gated on the whole blob) and its warps, every
-    one a single warp."""
+    one a sharded warp (``warp_spatial``)."""
     monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
     monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
     sess = RIFE(model_dirs[model], device="cpu", **modes)
@@ -219,8 +219,8 @@ def test_kernel_sites_of_sharded_steps(model_dirs, monkeypatch, model, modes,
     assert calls == want
     if n_sp > 1:
         assert not {"warp_pair", "warp_ds4_pair", "warp_render",
-                    "warp_ds2"} & set(want)
-        assert want.get("warp_u8", 0) > 0
+                    "warp_ds2", "warp_u8", "warp_feat"} & set(want)
+        assert want.get("warp_spatial", 0) > 0
 
 
 # --- -g all -----------------------------------------------------------------

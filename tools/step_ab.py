@@ -1,0 +1,257 @@
+"""The deconv sites, the v1 head, the sharded warp and whole steps of two
+checkouts, timed in turns on one card.
+
+Imports the ``rife_tpu_torch`` package of each checkout under a name of its
+own (each builds its kernels from its own ``csrc`` into its own ``_build``,
+as tools/warp_ab.py does) and times, in the order old, new, new, old (bf16):
+
+* every 4x4 stride-2 deconv site of the v4.6, v2.3 and v1 1080p B=8 steps
+  (``plan.conv_sites(..., "deconv4x4")`` of the new checkout): each
+  checkout's own route at the site (a planar site: its ``deconv4x4``; any
+  other: the new checkout's deconv kernel in XLA's order, against the old
+  checkout's cuDNN ``conv_transpose2d`` with the bias, the activation in
+  bf16 and the shuffle) and, where the old phase conv runs (Cin <= 128, O
+  <= 32), the old ``deconv4x4`` kernel on the same inputs in the planar
+  order, which must equal the new kernel's bit for bit (CUDA events);
+* the v1 fusionnet's head (B4's conv form, ``conv3x3(..., ps=2)``, 16 ->
+  16 at 544x960, B=8), bit for bit;
+* ``warp_spatial`` at a quarter of the rows (u8 C=3 of 1088x1920 B=2,
+  float C=32 of 544x960 B=2), bit for bit;
+* whole steps, host clock around synchronised steps after a warm-up, as
+  ``chip_smoke.py`` phase 11 times them: v4.6, v2.3 and v1 at 1080p B=8,
+  and the height-sharded cases of phase 11 (v4.6 1x4 B=2, v2.3 ``-u`` 4K
+  1x4 B=1, v1 1x4 B=1, v4.6 2x2 B=4, each over four shards of cuda:0).
+
+Every number goes to ``--out`` with the card's name and power limit.  Run
+from the repository root on one GPU, against the parent commit unpacked
+(``git archive``) into a directory that .gitignore lists:
+    python tools/step_ab.py --old <checkout> [--new <checkout>] [--out PATH]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+from warp_ab import card_line, load_package, time_ms  # noqa: E402
+
+STEPS = [("v4.6", {}, (1, 1), (8, 1080, 1920)),
+         ("v2.3", {}, (1, 1), (8, 1080, 1920)),
+         ("v1", {}, (1, 1), (8, 1080, 1920)),
+         ("v4.6", {}, (1, 4), (2, 1080, 1920)),
+         ("v2.3", {"uhd_mode": True}, (1, 4), (1, 2160, 3840)),
+         ("v1", {}, (1, 4), (1, 1080, 1920)),
+         ("v4.6", {}, (2, 2), (4, 1080, 1920))]
+
+
+def in_turns(fns, iters=10):
+    """{name: [ms, ms]} of each fn timed old, new, new, old."""
+    out = {"old": [], "new": []}
+    for name in ("old", "new", "new", "old"):
+        out[name].append(time_ms(fns[name], iters))
+    return out
+
+
+def deconv_sites(pkgs, dirs, device, rec):
+    F = torch.nn.functional
+    new_cv = pkgs["new"].ops.conv
+    old_cv = pkgs["old"].ops.conv
+    g = torch.Generator().manual_seed(0)
+    for model in ("v4.6", "v2.3", "v1"):
+        sess = pkgs["new"].RIFE(str(dirs[model]), device=device)
+        sites = pkgs["new"].engine.plan.conv_sites(sess, 1080, 1920,
+                                                   "deconv4x4")
+        del sess
+        for i, (factor, (cin,), co, ps, act, h, w, xla) in enumerate(sites):
+            b = 8 * factor
+            x = torch.randn(b, cin, h, w, generator=g).to(device,
+                                                         torch.bfloat16)
+            raw = (torch.randn(cin, co, 4, 4, generator=g)
+                   / (2 * cin ** 0.5)).to(device, torch.bfloat16)
+            bias = (torch.randn(co, generator=g) * 0.1).to(device).to(
+                torch.bfloat16)
+            slope = (torch.rand(co, generator=g) * 0.3).to(device).to(
+                torch.bfloat16)
+            packed = new_cv.pack_weight_t4(raw)
+            w3 = new_cv.deconv_phase_weights(raw).contiguous()
+            b4, s4 = bias.float().repeat(4), slope.float().repeat(4)
+            if xla:
+                def new():
+                    return new_cv.deconv4x4_xla(x, packed, bias.float(),
+                                                slope.float(), act=act, ps=ps)
+
+                def old():
+                    y = F.conv_transpose2d(x, raw, bias, stride=2, padding=1)
+                    if act:
+                        y = new_cv.activate_storage(y, act, 0.2, slope)
+                    return F.pixel_shuffle(y, ps) if ps > 1 else y
+            else:
+                def new():
+                    return new_cv.deconv4x4(x, w3, b4, s4, act=act,
+                                            weight_t4=packed, ps=ps)
+
+                def old():
+                    return old_cv.deconv4x4(
+                        x, w3, b4, s4, act=act,
+                        phase_weight_tc=old_cv.pack_weight_tc(w3), ps=ps)
+            entry = {"site": [b, cin, co, ps, act, h, w, bool(xla)],
+                     "route": in_turns({"old": old, "new": new})}
+            if cin <= 128 and co <= 32:
+                tc = old_cv.pack_weight_tc(w3)
+
+                def phase_conv():
+                    return old_cv.deconv4x4(x, w3, b4, s4, act=act,
+                                            phase_weight_tc=tc, ps=ps)
+
+                def planar():
+                    return new_cv.deconv4x4(x, w3, b4, s4, act=act,
+                                            weight_t4=packed, ps=ps)
+                same = torch.equal(phase_conv(), planar())
+                entry["kernels"] = in_turns({"old": phase_conv,
+                                             "new": planar})
+                entry["bit_for_bit"] = same
+                if not same:
+                    raise SystemExit(f"{model} deconv site {i}: the new "
+                                     f"kernel differs from the old one")
+            rec[f"deconv {model} {i}"] = entry
+            print(f"deconv {model} site {i} {entry['site']}: route "
+                  f"{entry['route']}"
+                  + (f"; the old phase-conv kernel vs the new kernel "
+                     f"(planar order) {entry['kernels']}, bit for bit"
+                     if "kernels" in entry else ""), flush=True)
+            del x, raw, packed, w3
+    torch.cuda.empty_cache()
+
+
+def head_and_spatial(pkgs, device, rec):
+    g = torch.Generator().manual_seed(1)
+    x = torch.randn(8, 16, 544, 960, generator=g).to(device, torch.bfloat16)
+    wt = (torch.randn(16, 16, 3, 3, generator=g) / 12).to(device,
+                                                          torch.bfloat16)
+    bias = torch.randn(16, generator=g).to(device) * 0.1
+    fns = {}
+    for side, pkg in pkgs.items():
+        cv = pkg.ops.conv
+        tc = cv.pack_weight_tc(wt)
+        fns[side] = (lambda cv=cv, tc=tc: cv.conv3x3([x], wt, bias,
+                                                     weight_tc=tc, ps=2))
+    require_equal(fns, "v1 head")
+    rec["v1 head conv3x3_ps"] = in_turns(fns)
+    print(f"v1 head (16 -> 16 + PixelShuffle 2 at 544x960, B=8): "
+          f"{rec['v1 head conv3x3_ps']}", flush=True)
+    for mode, u8, (b, c, h, w) in (("u8", True, (2, 3, 1088, 1920)),
+                                   ("float", False, (2, 32, 544, 960))):
+        img = torch.rand(b, c, h, w, generator=g).to(device, torch.bfloat16)
+        flow = (torch.randn(b, 2, h, w, generator=g) * 8).to(device,
+                                                            torch.bfloat16)
+        s, e = h // 4, h // 2
+        rows = flow[:, :, s:e].contiguous()
+        fns = {side: (lambda W=pkg.ops.warp: W.warp_spatial(img, rows, s,
+                                                            u8=u8))
+               for side, pkg in pkgs.items()}
+        require_equal(fns, f"warp_spatial {mode}")
+        rec[f"warp_spatial {mode}"] = in_turns(fns, 20)
+        print(f"warp_spatial {mode} rows {s}-{e} of {(b, c, h, w)}: "
+              f"{rec[f'warp_spatial {mode}']}", flush=True)
+
+
+def require_equal(fns, what):
+    a, b = fns["old"](), fns["new"]()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise SystemExit(f"{what}: the two checkouts differ")
+
+
+def step_ms(fn, steps=3) -> float:
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def steps(pkgs, dirs, device, rec):
+    for model, modes, (nd, ns), (b, h, w) in STEPS:
+        rng = np.random.default_rng(3)
+        f0 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
+                                           np.uint8)).to(device)
+        f1 = torch.roll(f0, shifts=(3, -5), dims=(1, 2))
+        ts = np.full(b, 0.5, np.float32)
+        runners = {}
+        for side, pkg in pkgs.items():
+            sess = pkg.RIFE(str(dirs[model]), device=device, **modes)
+            if nd * ns > 1:
+                S = pkg.parallel.sharding
+                sess = S.ShardedRIFE(sess, S.make_mesh_2d(
+                    nd, ns, [device] * (nd * ns)), height_axis="spatial")
+            runners[side] = sess
+        label = (f"{model}{' -u' if modes else ''} {h}x{w} B={b}"
+                 + (f" mesh {nd}x{ns}" if nd * ns > 1 else ""))
+        got = {"old": [], "new": []}
+        for side in ("old", "new", "new", "old"):
+            r = runners[side]
+            got[side].append(step_ms(
+                lambda r=r: r.process_batch_device(f0, f1, ts)))
+        rec[f"step {label}"] = got
+        print(f"step {label}: host ms a step (synchronised) {got}",
+              flush=True)
+        del runners
+        torch.cuda.empty_cache()
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--old", type=Path, required=True)
+    ap.add_argument("--new", type=Path, default=ROOT)
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--skip-steps", action="store_true")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    torch.backends.cudnn.allow_tf32 = False
+    pkgs = {}
+    for side, root in (("old", args.old), ("new", args.new)):
+        pkg = load_package(root.resolve(), f"rife_pkg_{side}")
+        for sub in ("ops.conv", "ops.warp", "engine.plan",
+                    "parallel.sharding"):
+            __import__(f"rife_pkg_{side}.{sub}")
+        pkgs[side] = pkg
+    new = pkgs["new"]
+    from importlib import import_module
+    models = ROOT / "rife_tpu_torch" / "_build" / "models"
+    dirs = {
+        "v4.6": import_module("rife_pkg_new.models.v46_arch")
+        .write_flownet_param(models),
+        "v2.3": import_module("rife_pkg_new.models.v23_arch")
+        .write_v23_params(models),
+        "v1": import_module("rife_pkg_new.models.v1_arch")
+        .write_v1_params(models)}
+    device = torch.device("cuda", 0)
+    card = card_line()
+    print(f"card: {card}; {torch.cuda.get_device_name(0)}", flush=True)
+    rec = {"card": card}
+    deconv_sites(pkgs, dirs, device, rec)
+    head_and_spatial(pkgs, device, rec)
+    if not args.skip_steps:
+        steps(pkgs, dirs, device, rec)
+    del new
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(rec, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
