@@ -33,10 +33,13 @@ on the one card named several times:
    ``conv3x3`` at every site the gates route to it in a bf16 1080p B=8
    v2.3 step, per site with cuDNN's bf16 time on the same call, the site's
    bound and the kernel's share of it, and each summed over the step;
-   ``conv3x3_ps`` (B4's conv form) at the v1 fusionnet's head site of a
-   1080p B=8 step, bit for bit against the plain kernel's output shuffled
+   ``conv3x3_ps`` (B4's conv form, its own kernel ``csrc/conv_ps.cu``) at
+   the v1 fusionnet's head site of a 1080p B=8 step (TMA in and out), bit
+   for bit against the plain kernel's output shuffled (the same sum order)
    and against its twin, timed beside the unfused kernel +
-   ``pixel_shuffle`` and cuDNN + ``pixel_shuffle``; the deconv kernel
+   ``pixel_shuffle`` and cuDNN + ``pixel_shuffle``, and at the same site
+   one column narrower (an odd width: the per-thread branch); the deconv
+   kernel
    (``deconv4x4``, B4's deconv form among its sites) at every 4x4 stride-2
    deconv site of the bf16 v4.6, v2.3 and v1 1080p B=8 steps and the v2.3
    ``-u`` 4K B=2 step, in the site's order (planar: against its twin and
@@ -219,7 +222,7 @@ KERNELS = {
     "warp_spatial": ("warp.cu", f"{WARP_SRC}:2901", []),
     "conv3x3": ("conv.cu", f"{CONV_SRC}:309",
                 [f"{CONV_SRC}:485", f"{CONV_SRC}:97", f"{CONV_SRC}:190"]),
-    "conv3x3_ps": ("conv.cu", f"{CONV_SRC}:756", []),
+    "conv3x3_ps": ("conv_ps.cu", f"{CONV_SRC}:756", []),
     "deconv4x4": ("deconv.cu", f"{CONV_SRC}:784", [f"{CONV_SRC}:732"]),
 }
 # the B4 deconv form's reference site: the v4.6 block tail,
@@ -711,22 +714,28 @@ def phase_conv(device, rng, report, sites):
 
 
 def phase_conv_ps(device, rng, report, sites):
-    """B4's conv form, ``conv3x3_ps``: at each gated ``rife.ConvPS`` site of
-    a v1 1080p B=8 step (the fusionnet's head), random weights, bf16 and
-    f32: (1) bit for bit against the plain kernel's output shuffled by
-    ``F.pixel_shuffle`` (the same sums, only the write addresses moved),
-    (2) against its twin at the conv bar.  bf16 per site: kernel, twin, the
+    """B4's conv form, ``conv3x3_ps`` (``csrc/conv_ps.cu``): at each gated
+    ``rife.ConvPS`` site of a v1 1080p B=8 step (the fusionnet's head),
+    random weights, bf16 and f32: (1) bit for bit against the plain kernel's
+    output shuffled by ``F.pixel_shuffle`` (in bf16 the two kernels sum in
+    the same tap and channel order; in f32 it is the same kernel), (2)
+    against its twin at the conv bar.  bf16 per site: kernel, twin, the
     unfused kernel + ``F.pixel_shuffle``, cuDNN's bf16 conv +
-    ``F.pixel_shuffle`` and the bound.  (B4's deconv form is the deconv
-    kernel's: ``phase_deconv``.)"""
+    ``F.pixel_shuffle`` and the bound; then the same checks at the site
+    one column narrower and B=2 (an odd width, which TMA cannot stage: the
+    kernel's per-thread branch), timed but not tallied.  (B4's deconv form
+    is the deconv kernel's: ``phase_deconv``.)"""
     from rife_tpu_torch.ops import conv as CV
 
     F = torch.nn.functional
+    cases = [(site, BENCH[0] * site[0], site[6], False) for site in sites]
+    cases += [(site, 2, site[6] - 1, True) for site in sites]
     for dtype in (torch.bfloat16, torch.float32):
-        timed = dtype == torch.bfloat16
-        for i, site in enumerate(sites):
-            factor, parts, cout, stride, act, h, w, _ = site
-            b = factor * BENCH[0]
+        for i, (site, b, w, odd) in enumerate(cases):
+            _, parts, cout, stride, act, h, _, _ = site
+            if odd and dtype == torch.float32:
+                continue
+            timed = dtype == torch.bfloat16
             cin = sum(parts)
             x = torch.randn(b, cin, h, w, device=device).to(dtype)
             bias = torch.randn(cout, device=device) * 0.1
@@ -753,19 +762,25 @@ def phase_conv_ps(device, rng, report, sites):
             unfused = F.pixel_shuffle(kfn(*args, ps=1), 2)
             torch.cuda.synchronize()
             require(torch.equal(fused, unfused),
-                    f"conv3x3_ps site {i}: not bit for bit with the plain "
+                    f"conv3x3_ps case {i}: not bit for bit with the plain "
                     f"kernel shuffled")
             bound = conv_site_bound(b, parts, cout, stride, h, w, False)
-            label = (f"site {i}: B={b} cin={cin} cout={cout} (x{cout // 4} "
-                     f"after the shuffle) s{stride} act{act} {h}x{w}")
+            geo = CV.ps_geometry(b, cin, cout, h, w, stride)
+            label = (f"case {i}: B={b} cin={cin} cout={cout} (x{cout // 4} "
+                     f"after the shuffle) s{stride} act{act} {h}x{w} (TMA in "
+                     f"{geo.tma_in}, out {geo.tma_out}; tiles of "
+                     f"{geo.tile_rows}x{CV.PS_TILE_COLS}, {geo.stages} "
+                     f"stages)")
             ms, lib = check_pair(
                 report, "conv3x3_ps", kfn, tfn, args, dtype, label, timed,
-                f32_rel=1e-5, iters=10, bound=bound if timed else None,
+                f32_rel=1e-5, iters=10, tally=not odd,
+                bound=bound if timed else None,
                 library=library if timed else None, scale=scale)
             if timed:
                 plain = time_ms(lambda: F.pixel_shuffle(kfn(*args, ps=1), 2),
                                 10)
-                report["conv3x3_ps"]["unfused_ms"] = plain
+                if not odd:
+                    report["conv3x3_ps"]["unfused_ms"] = plain
                 print(f"  conv3x3_ps {label}: kernel {ms:.4f} ms, unfused "
                       f"kernel + pixel_shuffle {plain:.4f} ms, cuDNN bf16 + "
                       f"pixel_shuffle {lib:.4f} ms, bound {bound[0]:.4f} ms "

@@ -2,7 +2,7 @@
 // v2.3 and v1 paths: a 3x3 pad-1 conv, stride 1 or 2, over the channel concat of
 // 1-4 input parts (the concat is never built), f32 accumulation, the f32
 // bias and the activation (none, ReLU, leaky, per-channel PReLU) in f32 and
-// one rounding to the storage dtype, optionally followed by a PixelShuffle.
+// one rounding to the storage dtype.
 // In f32 a deconv site (4x4 stride-2 transposed conv) runs as the stride-1
 // conv over its four output phases; in bf16 it takes csrc/deconv.cu.  Plain C
 // interface, loaded with ctypes by rife_tpu_torch/native/build.py; the
@@ -16,10 +16,8 @@
 //   stride 2  _conv_planar_s2_direct_cat / _conv_planar_s2_direct ->
 //             _conv_s2_direct_kernel (K12); conv_s2_bhcw -> _conv_s2_kernel
 //             (K10) computes the same
-//   B4        conv_ps_planar: K11 with the output channels permuted so that
-//             PixelShuffle is a reshape; here the epilogue writes the
-//             shuffled addresses (the TPU's permutation only buys a free BHCW
-//             reshape); deconv_ps_planar is csrc/deconv.cu's
+//   (B4's conv form, conv_ps_planar, is csrc/conv_ps.cu's kernel and its
+//   deconv form, deconv_ps_planar, csrc/deconv.cu's)
 //
 // bf16, the main path: conv3x3_tc_kernel, an implicit GEMM on the tensor
 // cores (mma.sync.m16n8k16, bf16 in, f32 accumulate).
@@ -58,10 +56,7 @@
 //   the group's bias and negative-side factors sit in shared memory (read
 //   from global memory per element they were the costliest part of the
 //   epilogue); each warp stages its output row through shared memory and
-//   writes 16-byte vectors along x in NCHW.  A PixelShuffle(r) site writes
-//   channel c r^2 + i r + j to (r y + i, r x + j): each written row
-//   interleaves r staged channels column by column, packed into 16-byte
-//   vectors where the row allows them (out_row).
+//   writes 16-byte vectors along x in NCHW.
 //
 // f32 (not the main path) keeps the CUDA-core kernel conv3x3_kernel: TF32
 // tensor cores would break the f32 bars.
@@ -306,22 +301,8 @@ struct TcArgs {
   float alpha;
   int tiles_x, tiles_y, n_tiles;
   int group_ch;  // output channels of a group (blockIdx.y)
-  int ps;        // PixelShuffle factor of the output (1: none): R
-  int out_ch;    // channels of the written tensor
   int vec_in;    // 8-byte input loads allowed (W % 4 == 0, parts 8-byte aligned)
 };
-
-// Output row s of a tile row (PixelShuffle(r), R = r): the written channel
-// cc = s / r, the row offset dy = s % r within the r rows that conv output
-// row oy becomes, and the staged channel of its column r x + k: s r + k.
-struct OutRow {
-  int cc, dy, base;
-  __device__ __forceinline__ int channel(int k) const { return base + k; }
-};
-
-__device__ __forceinline__ OutRow out_row(const TcArgs& a, int s) {
-  return OutRow{s / a.ps, s % a.ps, s * a.ps};
-}
 
 // Load one 16-channel chunk of tile t into registers: item i of this thread
 // is (row, 4-column vector, channel pair p = tid % 8); pre[i] holds the two
@@ -451,16 +432,28 @@ conv3x3_tc_kernel(TcArgs a) {
 
     // the chunk's MMAs: 9 taps x kR m16 tiles x NT n8 tiles
     const __nv_bfloat16* xb = xs + (it & 1) * Tl::kBuf;
+    // the B fragments of the next tap load while this tap's MMAs run (left
+    // to the compiler, the loads and MMAs serialized at some NT)
+    uint32_t bfs[2][NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const __nv_bfloat16* wp = ws + (j * 8 + g) * cpw + chunk * kChunk + 2 * tig;
+      bfs[0][j][0] = lds32(wp);
+      bfs[0][j][1] = lds32(wp + 8);
+    }
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
-      uint32_t bf[NT][2];
+      if (tap < 8) {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const __nv_bfloat16* wp = ws + (tap * kN + j * 8 + g) * cpw + chunk * kChunk + 2 * tig;
-        bf[j][0] = lds32(wp);
-        bf[j][1] = lds32(wp + 8);
+        for (int j = 0; j < NT; ++j) {
+          const __nv_bfloat16* wp =
+              ws + ((tap + 1) * kN + j * 8 + g) * cpw + chunk * kChunk + 2 * tig;
+          bfs[(tap + 1) & 1][j][0] = lds32(wp);
+          bfs[(tap + 1) & 1][j][1] = lds32(wp + 8);
+        }
       }
+      const uint32_t(&bf)[NT][2] = bfs[tap & 1];
 #pragma unroll
       for (int rr = 0; rr < Tl::kR; ++rr) {
         const int row = (warp * Tl::kR + rr) * S + ky;
@@ -501,49 +494,17 @@ conv3x3_tc_kernel(TcArgs a) {
         }
         __syncwarp();
         if (oy < a.ho) {
-          if (a.ps == 1) {
-            // channel n, 8 columns a lane: out[b][g0 + n][oy][ox0 + 8 h ...]
-            const bool vec = (a.wo & 7) == 0;
-            for (int idx = lane; idx < n_valid * 2; idx += 32) {
-              const int n = idx >> 1, x0 = ox0 + 8 * (idx & 1);
-              const __nv_bfloat16* src = obw + n * kTw + 8 * (idx & 1);
-              __nv_bfloat16* dst =
-                  a.out + ((static_cast<size_t>(b) * a.cout + g0 + n) * a.ho + oy) * a.wo + x0;
-              if (vec && x0 + 8 <= a.wo) {
-                *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-              } else {
-                for (int k = 0; k < 8 && x0 + k < a.wo; ++k) dst[k] = src[k];
-              }
-            }
-          } else {
-            // PixelShuffle rows: each output row of channel cc is R staged
-            // channels interleaved column by column, 16 R columns a tile
-            // row, 8 a lane at a time
-            const int R = a.ps;
-            const int chunks = 2 * R;
-            const int wr = R * a.wo, hr = R * a.ho;
-            const bool vec = (wr & 7) == 0;
-            const int s0 = g0 / R;
-            for (int idx = lane; idx < (n_valid / R) * chunks; idx += 32) {
-              const OutRow row = out_row(a, s0 + idx / chunks);
-              const int col0 = 8 * (idx % chunks);
-              uint32_t v4[4];
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                const int c0 = col0 + 2 * k, c1 = c0 + 1;
-                v4[k] = bf16_bits(obw + (row.channel(c0 % R) - g0) * kTw + c0 / R) |
-                        (bf16_bits(obw + (row.channel(c1 % R) - g0) * kTw + c1 / R) << 16);
-              }
-              const int x0 = R * ox0 + col0;
-              __nv_bfloat16* dst = a.out + ((static_cast<size_t>(b) * a.out_ch + row.cc) * hr +
-                                            R * oy + row.dy) * wr + x0;
-              if (vec && x0 + 8 <= wr) {
-                *reinterpret_cast<uint4*>(dst) = make_uint4(v4[0], v4[1], v4[2], v4[3]);
-              } else {
-                uint16_t* d16 = reinterpret_cast<uint16_t*>(dst);
-                for (int k = 0; k < 8 && x0 + k < wr; ++k)
-                  d16[k] = static_cast<uint16_t>(v4[k >> 1] >> (16 * (k & 1)));
-              }
+          // channel n, 8 columns a lane: out[b][g0 + n][oy][ox0 + 8 h ...]
+          const bool vec = (a.wo & 7) == 0;
+          for (int idx = lane; idx < n_valid * 2; idx += 32) {
+            const int n = idx >> 1, x0 = ox0 + 8 * (idx & 1);
+            const __nv_bfloat16* src = obw + n * kTw + 8 * (idx & 1);
+            __nv_bfloat16* dst =
+                a.out + ((static_cast<size_t>(b) * a.cout + g0 + n) * a.ho + oy) * a.wo + x0;
+            if (vec && x0 + 8 <= a.wo) {
+              *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
+            } else {
+              for (int k = 0; k < 8 && x0 + k < a.wo; ++k) dst[k] = src[k];
             }
           }
         }
@@ -669,19 +630,17 @@ extern "C" int rife_conv3x3(const void* x0, const void* x1, const void* x2, cons
 // C interface, bf16 on the tensor cores.  Parts as above in bf16; weight_tc
 // the packed (9, cout, cp) bf16 weights, cp = cin rounded up to 16, zero past
 // cin; bias and slope float32 (cout,) or null.  out (B, cout, Ho, Wo) as
-// above, or with ps = r > 1 its PixelShuffle(r), (B, cout/r^2, r Ho, r Wo).
-// Returns cudaGetLastError() right after the launch, or the reason the
+// above.  Returns cudaGetLastError() right after the launch, or the reason the
 // launch was refused.
 extern "C" int rife_conv3x3_tc(const void* x0, const void* x1, const void* x2, const void* x3,
                                int c0, int c1, int c2, int c3, const void* weight_tc, int cp,
                                const void* bias, const void* slope, void* out, int batch, int h,
-                               int w, int cout, int stride, int act, float alpha, int ps,
+                               int w, int cout, int stride, int act, float alpha,
                                void* stream) {
   const Parts parts = {{x0, x1, x2, x3}, {c0, c1, c2, c3}};
   const int cin = c0 + c1 + c2 + c3;
   if (cin <= 0 || cout <= 0 || cp < cin || cp % kChunk || (stride != 1 && stride != 2) ||
-      act < kNone || act > kPrelu || (act == kPrelu && slope == nullptr) || ps < 1 || ps > 8 ||
-      cout % (ps * ps))
+      act < kNone || act > kPrelu || (act == kPrelu && slope == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   DeviceInfo dev;
   const cudaError_t dev_rc = current_device_info(&dev);
@@ -701,17 +660,13 @@ extern "C" int rife_conv3x3_tc(const void* x0, const void* x1, const void* x2, c
   a.wo = (w - 1) / stride + 1;
   a.act = act;
   a.alpha = alpha;
-  a.ps = ps;
-  a.out_ch = cout / (ps * ps);
   bool aligned = (w & 3) == 0;
   for (int k = 0; k < kMaxParts; ++k)
     aligned = aligned && (reinterpret_cast<uintptr_t>(parts.ptr[k]) & 7) == 0;
   a.vec_in = aligned ? 1 : 0;
-  // groups of at most 64 output channels; a PixelShuffle's groups hold
-  // whole blocks of ps^2 channels
-  const int blk = ps * ps, blocks = cout / blk;
+  // groups of at most 64 output channels
   const int n_groups = (cout + 63) / 64;
-  a.group_ch = (blocks + n_groups - 1) / n_groups * blk;
+  a.group_ch = (cout + n_groups - 1) / n_groups;
   if (a.group_ch > 64 || n_groups > 65535) return static_cast<int>(cudaErrorInvalidConfiguration);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t rc = stride == 1 ? dispatch_tc<1>(a, batch, n_groups, dev, s)

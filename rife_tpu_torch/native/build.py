@@ -128,10 +128,16 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rife_conv3x3.restype = i
     # bf16: 4 part pointers, 4 channel counts, packed weight, its padded
     # Cin, bias, slope, out; batch, H, W, Cout, stride, activation, alpha,
-    # PixelShuffle factor, stream
+    # stream
     lib.rife_conv3x3_tc.argtypes = ([vp] * 4 + [i] * 4 + [vp, i] + [vp] * 3
-                                    + [i] * 6 + [ctypes.c_float, i, vp])
+                                    + [i] * 6 + [ctypes.c_float, vp])
     lib.rife_conv3x3_tc.restype = i
+    # B4's conv form: x, Cin, packed weight, its padded Cin, bias, slope,
+    # out; batch, H, W, Cout, stride, activation, alpha, tile rows, stages,
+    # TMA input and output flags, stream
+    lib.rife_conv3x3_ps.argtypes = ([vp, i, vp, i] + [vp] * 3 + [i] * 6
+                                    + [ctypes.c_float] + [i] * 4 + [vp])
+    lib.rife_conv3x3_ps.restype = i
     # x, Cin, packed 4-tap weight, its padded Cin, bias, slope, out; batch,
     # H, W, Cout, activation, alpha, PixelShuffle factor, XLA order, stream
     lib.rife_deconv4x4.argtypes = ([vp, i, vp, i] + [vp] * 3 + [i] * 5

@@ -12,7 +12,12 @@ storage dtype (``conv_planar.py:56-63,93-94``).  It replaces
 ``conv_planar_bhcw`` (K9) and ``conv_s2_bhcw`` (K10) compute the same
 functions and are covered by it.  In bf16 it runs on the tensor cores over
 weights packed once per model (``pack_weight_tc``: (9, Cout, Cin padded to
-16)); in f32 on the CUDA cores over the OIHW weights.  ``deconv4x4`` runs
+16)); in f32 on the CUDA cores over the OIHW weights.  Its PixelShuffle(2)
+form (B4's conv form, ``conv_ps_planar``: ``conv3x3(..., ps=2)``) runs in
+bf16 on a kernel of its own (``rife_tpu_torch/csrc/conv_ps.cu``, over the
+same packed weights and the tile geometry of ``ps_geometry``), which writes
+the shuffled output; in f32 the CUDA-core kernel, then ``F.pixel_shuffle``.
+``deconv4x4`` runs
 the 4x4 stride-2 transposed conv of the planar deconv sites: in bf16 on the
 card the deconv kernel (``rife_tpu_torch/csrc/deconv.cu``: four taps per
 output phase, over weights packed once per model by ``pack_weight_t4``),
@@ -43,15 +48,16 @@ thresholds (ctx ``planar_min_hw`` / ``planar_deconv_min_hw`` override them,
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises (nothing falls back to another kernel or to the twin).  ``LAUNCHES``
-counts kernel launches: ``conv3x3`` and ``conv3x3_ps`` the conv kernels',
-``deconv4x4`` the deconv kernel's (both of its wrappers, every order and
-shuffle).
+counts kernel launches: ``conv3x3`` the conv kernels', ``conv3x3_ps`` B4's
+conv kernel's (and an f32 shuffled conv's), ``deconv4x4`` the deconv
+kernel's (both of its wrappers, every order and shuffle).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -412,10 +418,10 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
 
 def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
             ps=1):
-    """One launch: the tensor-core kernel for bf16 (over ``weight_tc``, the
-    packed weights; ``ps`` > 1 writes the PixelShuffle(ps) of the result),
-    the CUDA-core kernel for f32 (which writes the plain result).  It counts
-    as ``conv3x3_ps`` when ``ps`` > 1, else as ``conv3x3``."""
+    """One launch that writes the plain result: the tensor-core kernel for
+    bf16 (over ``weight_tc``, the packed weights), the CUDA-core kernel for
+    f32.  It counts as ``conv3x3_ps`` when ``ps`` > 1 (the caller shuffles),
+    else as ``conv3x3``."""
     b, h, w = parts[0].shape[0], parts[0].shape[2], parts[0].shape[3]
     cout = weight.shape[0]
     padded = parts + [None] * (MAX_PARTS - len(parts))
@@ -425,7 +431,7 @@ def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
         L.launch("rife_conv3x3_tc", device, *map(L.ptr, padded), *chans,
                  L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias),
                  L.ptr(slope), L.ptr(out), b, h, w, cout, stride, act,
-                 ctypes.c_float(alpha), ps)
+                 ctypes.c_float(alpha))
     else:
         L.launch("rife_conv3x3", device, *map(L.ptr, padded), *chans,
                  L.ptr(weight), L.ptr(bias), L.ptr(slope), L.ptr(out), b, h,
@@ -438,6 +444,110 @@ def _check_ps(ps, channels):
         raise ValueError(f"PixelShuffle({ps}) of {channels} channels")
 
 
+# B4's conv form on the card (csrc/conv_ps.cu): its limits and the geometry
+# the kernel reads
+PS_MAX_CHANNELS = 64     # Cin and Cout
+PS_TILE_COLS = 64        # conv columns of a tile
+PS_CHUNK = 16            # input channels of a stage
+PS_RAW_PX = 80           # pixels of a staged row: columns x0 - 8 .. x0 + 71
+PS_ROW_BYTES = PS_RAW_PX * PS_CHUNK * 2  # a staged row as TMA lands it
+PS_T_ROW = 32 * PS_CHUNK * 2  # a warp's transposed row: 32 pixels x 16
+PS_OUT_LINE = 64         # bytes of a warp's output line (32 bf16)
+PS_CONSUMER_WARPS = 8
+PS_WEIGHT_ROW = 24       # bf16 of a staged weight row (16 + skew)
+SMEM_OPTIN = 232_448     # H100 shared memory a block may opt in to
+
+
+class PsGeometry(NamedTuple):
+    """What ``conv3x3_ps_kernel`` reads of a launch: ``nt`` n8 tiles of
+    output channels, tiles of ``tile_rows`` conv rows x ``PS_TILE_COLS``
+    columns, each a window of ``box_rows`` input rows of ``PS_RAW_PX``
+    pixels a 16-channel chunk (at stride 2 twice: the even and the odd
+    columns), a ring of ``stages``; each of the 8 consumer warps (two row
+    groups of tile_rows / 2 rows x four groups of 16 columns) transposes
+    its window of each stage and writes its output tile, ``out_bytes``,
+    twice buffered; ``tma_in`` / ``tma_out``: TMA (else the per-thread
+    branch) for the input rows and the output tiles."""
+    nt: int
+    tile_rows: int
+    box_rows: int
+    chunks: int
+    tiles_x: int
+    tiles_y: int
+    n_tiles: int
+    stages: int
+    out_bytes: int
+    smem_bytes: int
+    tma_in: bool
+    tma_out: bool
+
+
+def ps_geometry(b, cin, cout, h, w, stride, smem_optin=SMEM_OPTIN):
+    """The geometry of one ``conv3x3_ps_kernel`` launch (``csrc/conv_ps.cu``
+    ``PsTile`` and ``launch_ps`` check it): NT = ceil(Cout / 8) rounded up
+    to 1, 2, 4 or 8; tile rows 16 / NT within [2, 8] at stride 1, so that
+    the accumulators (rows / 2 x NT x 4 a thread) and the output tile keep
+    their size, and 2 at stride 2; as many stages (2 to 4) as fit in
+    ``smem_optin``.  TMA stages the input at stride 1 with W % 8 == 0
+    (16-byte row strides; a TMA box has no element stride along its inner
+    dimension) and writes the output where 2 Wo % 8 == 0."""
+    if not (0 < cin <= PS_MAX_CHANNELS and 0 < cout <= PS_MAX_CHANNELS
+            and cout % 4 == 0 and stride in (1, 2)):
+        raise ValueError(f"B4's conv kernel takes Cin, Cout <= "
+                         f"{PS_MAX_CHANNELS}, Cout a multiple of 4 and "
+                         f"stride 1 or 2, got {cin} -> {cout}, stride "
+                         f"{stride}")
+    n8 = -(-cout // 8)
+    nt = n8 if n8 <= 2 else (4 if n8 <= 4 else 8)
+    tile_rows = max(2, min(8, 16 // nt)) if stride == 1 else 2
+    box_rows = (tile_rows - 1) * stride + 3
+    chunks = -(-cin // PS_CHUNK)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    tiles_x = -(-wo // PS_TILE_COLS)
+    tiles_y = -(-ho // tile_rows)
+    stage = stride * box_rows * PS_ROW_BYTES
+    r = tile_rows // 2
+    window = stride * ((r - 1) * stride + 3) * PS_T_ROW
+    out = -(-(cout // 4) * 2 * r * PS_OUT_LINE // 128) * 128
+    weights = chunks * 9 * nt * 8 * PS_WEIGHT_ROW * 2
+
+    def smem(stages):
+        return (128 + stages * stage
+                + PS_CONSUMER_WARPS * (window + 2 * out) + weights
+                + 16 * stages)
+    stages = next((n for n in (4, 3) if smem(n) <= smem_optin), 2)
+    return PsGeometry(nt, tile_rows, box_rows, chunks, tiles_x, tiles_y,
+                      b * tiles_x * tiles_y, stages, out, smem(stages),
+                      stride == 1 and w % 8 == 0, wo % 4 == 0)
+
+
+def _launch_ps(parts, weight, weight_tc, bias, slope, stride, act, alpha,
+               ps):
+    """B4's conv form in bf16 on the card: one launch of the conv + shuffle
+    kernel (``rife_conv3x3_ps``); counts as ``conv3x3_ps``.  Raises on what
+    the kernel does not take."""
+    b, h, w, cout = _check(parts, weight, bias, slope, stride, act, weight_tc)
+    if ps != 2:
+        raise ValueError(f"B4's conv kernel shuffles by 2, got {ps}")
+    if len(parts) != 1:
+        raise ValueError(f"B4's conv kernel takes one input part, got "
+                         f"{len(parts)}")
+    x = parts[0]
+    for what, t in (("x", x), ("weight_tc", weight_tc)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"B4's conv kernel needs a 16-byte aligned "
+                             f"{what}")
+    geo = ps_geometry(b, x.shape[1], cout, h, w, stride)
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    out = x.new_empty((b, cout // 4, 2 * ho, 2 * wo))
+    L.launch("rife_conv3x3_ps", x.device, L.ptr(x), x.shape[1],
+             L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias), L.ptr(slope),
+             L.ptr(out), b, h, w, cout, stride, act, ctypes.c_float(alpha),
+             geo.tile_rows, geo.stages, int(geo.tma_in), int(geo.tma_out))
+    LAUNCHES["conv3x3_ps"] += 1
+    return out
+
+
 def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
             alpha=0.2, weight_tc=None, ps=1):
     """The kernel on CUDA, its twin on the CPU.  ``parts``: 1-4 (B,Ci,H,W)
@@ -446,22 +556,20 @@ def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
     (``pack_weight_tc``), which a bf16 launch reads and needs;
     ``bias``/``slope`` (Cout,) float32 or None.  Returns (B, Cout, Ho, Wo)
     in the parts' dtype; with ``ps`` > 1 (B4, ``rife.ConvPS``) its
-    PixelShuffle(ps), (B, Cout/ps^2, ps*Ho, ps*Wo): in bf16 one launch whose
-    epilogue writes each output channel c*ps^2 + i*ps + j of pixel (y, x)
-    to (c, ps*y + i, ps*x + j), in f32 the CUDA-core kernel, then
-    ``F.pixel_shuffle``."""
+    PixelShuffle(ps), (B, Cout/ps^2, ps*Ho, ps*Wo): in bf16 one launch of
+    B4's conv kernel (one part, ``ps`` 2, Cin and Cout <= 64; it writes each
+    conv channel 4c + 2i + j of pixel (y, x) to (c, 2y + i, 2x + j)), in f32
+    the CUDA-core kernel, then ``F.pixel_shuffle``."""
     parts = list(parts)
     if parts[0].device.type == "cpu":
         return conv3x3_ref(parts, weight, bias, slope, stride=stride, act=act,
                            alpha=alpha, ps=ps)
+    if ps > 1 and parts[0].dtype == torch.bfloat16:
+        return _launch_ps(parts, weight, weight_tc, bias, slope, stride, act,
+                          alpha, ps)
     b, h, w, cout = _check(parts, weight, bias, slope, stride, act, weight_tc)
     _check_ps(ps, cout)
     ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
-    if ps > 1 and parts[0].dtype == torch.bfloat16:
-        out = parts[0].new_empty((b, cout // (ps * ps), ps * ho, ps * wo))
-        _launch(parts, weight, bias, slope, out, stride, act, alpha,
-                weight_tc, ps=ps)
-        return out
     out = parts[0].new_empty((b, cout, ho, wo))
     _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
             ps=ps)

@@ -5,10 +5,13 @@ weights bit for bit, the twin over the packed layout equals ``conv3x3_ref``
 bit for bit, the deconv twin (``deconv4x4_ref``, the phases interleaved)
 equals ``deconv4x4``'s interleave of the phase conv, and a Python mirror of
 the conv kernel's epilogue addressing (channel groups, 16-column tiles,
-8-column stores, the PixelShuffle rows of B4) and one of the deconv kernel's
+8-column stores), one of B4's conv kernel's (``csrc/conv_ps.cu``: the
+swizzled output tile and its halves, ``mirror_ps_store`` of
+tests/test_torch_conv_ps_kernel.py) and one of the deconv kernel's
 (``csrc/deconv.cu``: phase rows a warp, interleaved segments, the
 PixelShuffle of B4's deconv form) put every value where the twins do.  The
-kernel itself against the twins: tests/test_torch_cuda.py, on the card."""
+kernels themselves against the twins: tests/test_torch_cuda.py, on the
+card."""
 
 import numpy as np
 import pytest
@@ -20,6 +23,7 @@ from rife_tpu_torch.engine import plan
 from rife_tpu_torch.models.v23_arch import write_v23_params
 from rife_tpu_torch.ops import conv as CV
 from rife_tpu_torch.ops import torch_ops
+from test_torch_conv_ps_kernel import mirror_ps_store
 
 N_SITES = 11
 
@@ -104,42 +108,27 @@ def kernel_groups(cout, ps=1, most=64):
     return [(g * size, min(size, cout - g * size)) for g in range(n)]
 
 
-def mirror_store(y, span, ps=1):
+def mirror_store(y, span):
     """Place the (B, N, Ho, Wo) per-channel results as ``csrc/conv.cu``'s
     epilogue does: per channel group, per tile of ``span`` output columns
-    (16, the m16 rows of an MMA) and row, lanes of 8 output columns; a
-    PixelShuffle(ps) output row by row of ps staged channels (``out_row``:
-    row s is channel s // ps, row offset s % ps, its column ps x + k from
-    staged channel s ps + k)."""
+    (16, the m16 rows of an MMA) and row, lanes of 8 output columns."""
     b, n_ch, ho, wo = y.shape
-    rr = ps
-    out = torch.full((b, n_ch // (ps * ps), rr * ho, rr * wo), float("nan"))
-    for g0, n_valid in kernel_groups(n_ch, ps):
+    out = torch.full((b, n_ch, ho, wo), float("nan"))
+    for g0, n_valid in kernel_groups(n_ch):
         for ox0 in range(0, wo, span):
             for oy in range(ho):
                 ob = torch.zeros(b, 64, span)  # a warp's staged row
                 cols = min(span, wo - ox0)
                 ob[:, :n_valid, :cols] = y[:, g0:g0 + n_valid, oy,
                                            ox0:ox0 + cols]
-                if rr == 1:
-                    vecs = span // 8
-                    for idx in range(n_valid * vecs):
-                        n, h = idx // vecs, idx % vecs
-                        x0 = ox0 + 8 * h
-                        k = min(8, wo - x0)
-                        if k > 0:
-                            out[:, g0 + n, oy, x0:x0 + k] = \
-                                ob[:, n, 8 * h:8 * h + k]
-                    continue
-                chunks = span * rr // 8
-                for idx in range((n_valid // rr) * chunks):
-                    s = g0 // rr + idx // chunks
-                    cc, dy = s // ps, s % ps
-                    col0 = 8 * (idx % chunks)
-                    for c in range(col0, col0 + 8):
-                        if rr * ox0 + c < rr * wo:
-                            out[:, cc, rr * oy + dy, rr * ox0 + c] = \
-                                ob[:, s * ps + c % rr - g0, c // rr]
+                vecs = span // 8
+                for idx in range(n_valid * vecs):
+                    n, h = idx // vecs, idx % vecs
+                    x0 = ox0 + 8 * h
+                    k = min(8, wo - x0)
+                    if k > 0:
+                        out[:, g0 + n, oy, x0:x0 + k] = \
+                            ob[:, n, 8 * h:8 * h + k]
     return out
 
 
@@ -217,15 +206,16 @@ def test_kernel_store_addressing(sites, i):
 
 
 @pytest.mark.parametrize("case", [
-    ("conv", 16, 16, 1), ("conv", 8, 96, 1), ("conv", 12, 68, 2),
+    ("conv", 16, 16, 1), ("conv", 8, 64, 1), ("conv", 12, 36, 2),
     ("conv", 6, 36, 1), ("deconv", 12, 4 * 8, 1), ("deconv", 8, 4 * 24, 1),
     ("deconv", 16, 4 * 32, 1), ("deconv", 16, 4 * 128, 1)])
 def test_kernel_ps_store_addressing(case):
-    """B4: the same mirror with ``ps=2`` writes every output once, where the
+    """B4: the kernels' shuffled stores write every output once, where the
     twins put them (``pixel_shuffle`` of ``conv3x3_ref`` / of
-    ``deconv4x4_ref``): the v1 head (16 -> 16), channel groups that split
-    the output (96, 68: two groups of whole 2x2 blocks), deconvs of 8 to
-    128 output channels (v1's up0: six groups of 22 and the rest;
+    ``deconv4x4_ref``): B4's conv kernel (``mirror_ps_store``) at the v1
+    head (16 -> 16), 64 output channels (2-row tiles), 36 (NT 8 at stride
+    2: 2-row tiles, a part-filled last n8 tile); deconvs of 8 to 128 output
+    channels (v1's up0: six groups of 22 and the rest;
     ``mirror_deconv_store``), at widths that leave a ragged last tile and,
     at stride 2, odd output sizes."""
     kind, cin, cout, stride = case
@@ -242,8 +232,8 @@ def test_kernel_ps_store_addressing(case):
             got = mirror_deconv_store(CV.deconv4x4_ref(x, weight), ps=2)
             want = CV.deconv4x4_ref(x, weight, ps=2)
         else:
-            got = mirror_store(CV.conv3x3_ref([x], weight, stride=stride), 16,
-                               ps=2)
+            got = mirror_ps_store(CV.conv3x3_ref([x], weight, stride=stride),
+                                  stride)
             want = CV.conv3x3_ref([x], weight, stride=stride, ps=2)
         assert got.shape == want.shape
         assert not torch.isnan(got).any()

@@ -382,6 +382,11 @@ def every_kernel(device):
                                  weight_t4=CV.pack_weight_t4(raw)))
         outs.append(W.warp_spatial(img, flow[:, :, 8:24].contiguous(), 8,
                                    u8=False, ds4=True))
+        wps = (torch.randn(16, 16, 3, 3, generator=torch.Generator()
+                           .manual_seed(25)) * 0.2).to(device, dtype)
+        outs.append(CV.conv3x3([img], wps, bias[:16].contiguous(),
+                               act=CV.ACT_LEAKY,
+                               weight_tc=CV.pack_weight_tc(wps), ps=2))
         if dtype == torch.bfloat16:
             outs.append(CV.deconv4x4_xla(img, CV.pack_weight_t4(raw),
                                          bias[:6], act=CV.ACT_RELU))
@@ -604,18 +609,19 @@ def test_deconv_rows_do_not_depend_on_the_window_or_the_batch(cuda_device):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,cin,cout,stride,h,w", [
     ("conv", 16, 16, 1, 272, 480),   # the v1 fusionnet head, B=2
-    ("conv", 8, 96, 1, 33, 61),      # two groups of whole 2x2 blocks
-    ("conv", 12, 68, 2, 22, 38),     # 17 blocks over two groups, stride 2
+    ("conv", 8, 64, 1, 33, 61),      # 64 channels: 2-row tiles, odd sizes
+    ("conv", 12, 36, 2, 22, 38),     # a part-filled n8 tile, stride 2
     ("conv", 5, 12, 1, 9, 13),       # odd sizes, unaligned rows
     ("deconv", 64, 96, 1, 68, 120),  # v4.6 block tail: 24 channels
     ("deconv", 12, 32, 1, 17, 30),
 ])
 def test_conv_ps_kernel(cuda_device, kind, cin, cout, stride, h, w, dtype):
-    """B4 (``ps=2``): one launch, bit for bit the same kernel's unshuffled
-    output shuffled (only the write addresses move), and against its twin
-    at the conv bar; the conv form counts as ``conv3x3_ps``, the deconv
-    form in bf16 as ``deconv4x4`` (the deconv kernel), in f32 as
-    ``conv3x3_ps`` (the phase conv)."""
+    """B4 (``ps=2``): one launch, bit for bit the unshuffled output
+    shuffled, and against its twin at the conv bar; the conv form counts as
+    ``conv3x3_ps`` (in bf16 B4's conv kernel, whose sums run in the plain
+    kernel's order, so only the write addresses move), the deconv form in
+    bf16 as ``deconv4x4`` (the deconv kernel), in f32 as ``conv3x3_ps``
+    (the phase conv)."""
     from rife_tpu_torch.ops import conv as CV
 
     F = torch.nn.functional
@@ -662,6 +668,47 @@ def test_conv_ps_kernel(cuda_device, kind, cin, cout, stride, h, w, dtype):
     assert {k: v for k, v in CV.LAUNCHES.items() if v} == {counter: 1}
     assert torch.equal(got, F.pixel_shuffle(run(1), 2))
     check(got, want, f32_rel=1e-5, scale=scale)
+
+
+@pytest.mark.parametrize("w", [96, 75])
+@pytest.mark.parametrize("stride", [1, 2])
+@pytest.mark.parametrize("cin,cout", [(16, 16), (24, 64), (64, 16),
+                                      (16, 64)])
+def test_conv_ps_kernel_every_shape(cuda_device, cin, cout, stride, w):
+    """B4's conv kernel (``csrc/conv_ps.cu``) over the gate's range: stride
+    1 and 2, Cin 16/24/64, Cout 16/64, every activation, W % 8 == 0 (TMA)
+    and an odd W (the per-thread branch), B = 8 and 1: one launch a call,
+    at the conv bar against its twin, bit for bit with the plain kernel
+    shuffled, and the rows of the B=1 launch byte for byte those of the
+    B=8 launch."""
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    rng = np.random.default_rng(cin * cout + stride * w)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
+        device=cuda_device, dtype=dt).contiguous()
+    x = t(rng.normal(size=(8, cin, 38, w)), torch.bfloat16)
+    weight = t(rng.normal(size=(cout, cin, 3, 3)) * 0.2, torch.bfloat16)
+    bias = t(rng.normal(size=cout), torch.float32)
+    slope = t(rng.uniform(0, 0.5, cout), torch.float32)
+    packed = CV.pack_weight_tc(weight)
+    scale = CV.conv3x3_ref([x.float().abs()], weight.float().abs(),
+                           stride=stride, ps=2)
+    for act in (CV.ACT_NONE, CV.ACT_RELU, CV.ACT_LEAKY, CV.ACT_PRELU):
+        def run(xs, ps=2):
+            return CV.conv3x3([xs], weight, bias, slope, stride=stride,
+                              act=act, alpha=0.1, weight_tc=packed, ps=ps)
+        CV.reset_launches()
+        got = run(x)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in CV.LAUNCHES.items() if v} == {
+            "conv3x3_ps": 1}
+        want = CV.conv3x3_ref([x], weight, bias, slope, stride=stride,
+                              act=act, alpha=0.1, ps=2)
+        check(got, want, f32_rel=1e-5, scale=scale)
+        assert torch.equal(got, F.pixel_shuffle(run(x, ps=1), 2))
+        one = run(x[5:6].contiguous())
+        assert torch.equal(one, got[5:6])
 
 
 def test_v1_f32_matches_cpu(cuda_device, tmp_path, monkeypatch):

@@ -114,7 +114,8 @@ def conv_calls(dtype):
     """(counter, C function, thunk) for conv3x3 (one and three parts) and
     deconv4x4, each also in its PixelShuffle form (B4, ``conv3x3_ps``), and
     in bf16 deconv4x4_xla: a bf16 deconv launches the deconv kernel, an f32
-    one the phase conv."""
+    one the phase conv; a bf16 shuffled conv B4's conv kernel, an f32 one
+    the CUDA-core kernel."""
     bf16 = dtype == torch.bfloat16
     c_fn = "rife_conv3x3_tc" if bf16 else "rife_conv3x3"
     d_fn = "rife_deconv4x4" if bf16 else c_fn
@@ -135,7 +136,7 @@ def conv_calls(dtype):
         ("deconv4x4" if bf16 else "conv3x3", d_fn, lambda: CV.deconv4x4(
             torch.cat(parts, 1), phase, on_card(24), act=CV.ACT_RELU,
             weight_t4=t4)),
-        ("conv3x3_ps", c_fn, lambda: CV.conv3x3(
+        ("conv3x3_ps", "rife_conv3x3_ps" if bf16 else c_fn, lambda: CV.conv3x3(
             [torch.cat(parts, 1)], weight, bias, slope, act=CV.ACT_PRELU,
             weight_tc=CV.pack_weight_tc(weight), ps=2)),
         ("deconv4x4" if bf16 else "conv3x3_ps", d_fn, lambda: CV.deconv4x4(

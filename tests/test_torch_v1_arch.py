@@ -212,7 +212,8 @@ def test_1080p_sites(dirs, variant):
     """At full widths and 1080p: the fusionnet's head conv takes the
     544x960 output of the decoder (16 -> 16), which the planar gate sends
     to B4 (``conv3x3_ps``); the wide flownet convs stay on cuDNN; every
-    gated site fits the tensor-core kernel's resident weights."""
+    gated conv site fits the tensor-core kernel's resident weights, and the
+    head B4's conv kernel's shared memory (``ps_geometry``)."""
     sess = RIFE(str(dirs[variant]), device="cpu")
     sites = plan.kernel_sites(sess, 1080, 1920)
     ps = plan.conv_sites(sess, 1080, 1920, "conv3x3_ps")
@@ -222,8 +223,11 @@ def test_1080p_sites(dirs, variant):
     # the flownet's only planar site: block 2's entry over its three parts
     assert [s for s in convs if s[2] > 64 and not s[-1]] == [
         (1, (3, 3, 2), V1_WIDTHS[2], 2, CV.ACT_PRELU, 544, 960, False)]
-    for site in convs + ps:
+    for site in convs:
         assert tc_smem_bytes(site) <= H100_SMEM_OPTIN, site
+    for _, parts, cout, stride, _, h, w, _ in ps:
+        assert CV.ps_geometry(8, sum(parts), cout, h, w,
+                              stride).smem_bytes <= H100_SMEM_OPTIN
     assert max(tc_smem_bytes(s) for s in convs) > 200_000  # the 128->64 deconv
     want = ({"warp_ds4_pair": 1, "warp_pair": 2, "warp_feat": 8}
             if variant == "rife" else {"warp_pair": 1, "warp_feat": 12})

@@ -1,5 +1,5 @@
-"""The deconv sites, the v1 head, the sharded warp and whole steps of two
-checkouts, timed in turns on one card.
+"""The conv and deconv sites, the v1 head, the sharded warp and whole steps
+of two checkouts, timed in turns on one card.
 
 Imports the ``rife_tpu_torch`` package of each checkout under a name of its
 own (each builds its kernels from its own ``csrc`` into its own ``_build``,
@@ -7,12 +7,11 @@ as tools/warp_ab.py does) and times, in the order old, new, new, old (bf16):
 
 * every 4x4 stride-2 deconv site of the v4.6, v2.3 and v1 1080p B=8 steps
   (``plan.conv_sites(..., "deconv4x4")`` of the new checkout): each
-  checkout's own route at the site (a planar site: its ``deconv4x4``; any
-  other: the new checkout's deconv kernel in XLA's order, against the old
-  checkout's cuDNN ``conv_transpose2d`` with the bias, the activation in
-  bf16 and the shuffle) and, where the old phase conv runs (Cin <= 128, O
-  <= 32), the old ``deconv4x4`` kernel on the same inputs in the planar
-  order, which must equal the new kernel's bit for bit (CUDA events);
+  checkout's route at the site (``deconv4x4`` at a planar site,
+  ``deconv4x4_xla`` elsewhere) on the same inputs, bit for bit;
+* ``conv3x3`` (K11/K12) at every site of the bf16 v2.3 1080p B=8 step
+  (``plan.conv_sites`` of the new checkout), both checkouts' kernel on the
+  same inputs, bit for bit, and the sum over the sites;
 * the v1 fusionnet's head (B4's conv form, ``conv3x3(..., ps=2)``, 16 ->
   16 at 544x960, B=8), bit for bit;
 * ``warp_spatial`` at a quarter of the rows (u8 C=3 of 1088x1920 B=2,
@@ -62,9 +61,6 @@ def in_turns(fns, iters=10):
 
 
 def deconv_sites(pkgs, dirs, device, rec):
-    F = torch.nn.functional
-    new_cv = pkgs["new"].ops.conv
-    old_cv = pkgs["old"].ops.conv
     g = torch.Generator().manual_seed(0)
     for model in ("v4.6", "v2.3", "v1"):
         sess = pkgs["new"].RIFE(str(dirs[model]), device=device)
@@ -81,54 +77,67 @@ def deconv_sites(pkgs, dirs, device, rec):
                 torch.bfloat16)
             slope = (torch.rand(co, generator=g) * 0.3).to(device).to(
                 torch.bfloat16)
-            packed = new_cv.pack_weight_t4(raw)
-            w3 = new_cv.deconv_phase_weights(raw).contiguous()
-            b4, s4 = bias.float().repeat(4), slope.float().repeat(4)
-            if xla:
-                def new():
-                    return new_cv.deconv4x4_xla(x, packed, bias.float(),
-                                                slope.float(), act=act, ps=ps)
-
-                def old():
-                    y = F.conv_transpose2d(x, raw, bias, stride=2, padding=1)
-                    if act:
-                        y = new_cv.activate_storage(y, act, 0.2, slope)
-                    return F.pixel_shuffle(y, ps) if ps > 1 else y
-            else:
-                def new():
-                    return new_cv.deconv4x4(x, w3, b4, s4, act=act,
-                                            weight_t4=packed, ps=ps)
-
-                def old():
-                    return old_cv.deconv4x4(
-                        x, w3, b4, s4, act=act,
-                        phase_weight_tc=old_cv.pack_weight_tc(w3), ps=ps)
+            fns = {}
+            for side, pkg in pkgs.items():
+                cv = pkg.ops.conv
+                packed = cv.pack_weight_t4(raw)
+                if xla:
+                    fns[side] = (lambda cv=cv, packed=packed:
+                                 cv.deconv4x4_xla(x, packed, bias.float(),
+                                                  slope.float(), act=act,
+                                                  ps=ps))
+                else:
+                    w3 = cv.deconv_phase_weights(raw).contiguous()
+                    b4, s4 = bias.float().repeat(4), slope.float().repeat(4)
+                    fns[side] = (lambda cv=cv, packed=packed, w3=w3, b4=b4,
+                                 s4=s4: cv.deconv4x4(x, w3, b4, s4, act=act,
+                                                     weight_t4=packed, ps=ps))
+            require_equal(fns, f"{model} deconv site {i}")
             entry = {"site": [b, cin, co, ps, act, h, w, bool(xla)],
-                     "route": in_turns({"old": old, "new": new})}
-            if cin <= 128 and co <= 32:
-                tc = old_cv.pack_weight_tc(w3)
-
-                def phase_conv():
-                    return old_cv.deconv4x4(x, w3, b4, s4, act=act,
-                                            phase_weight_tc=tc, ps=ps)
-
-                def planar():
-                    return new_cv.deconv4x4(x, w3, b4, s4, act=act,
-                                            weight_t4=packed, ps=ps)
-                same = torch.equal(phase_conv(), planar())
-                entry["kernels"] = in_turns({"old": phase_conv,
-                                             "new": planar})
-                entry["bit_for_bit"] = same
-                if not same:
-                    raise SystemExit(f"{model} deconv site {i}: the new "
-                                     f"kernel differs from the old one")
+                     "route": in_turns(fns)}
             rec[f"deconv {model} {i}"] = entry
-            print(f"deconv {model} site {i} {entry['site']}: route "
-                  f"{entry['route']}"
-                  + (f"; the old phase-conv kernel vs the new kernel "
-                     f"(planar order) {entry['kernels']}, bit for bit"
-                     if "kernels" in entry else ""), flush=True)
-            del x, raw, packed, w3
+            print(f"deconv {model} site {i} {entry['site']}: "
+                  f"{entry['route']}, bit for bit", flush=True)
+            del x, raw, fns
+    torch.cuda.empty_cache()
+
+
+def conv_sites(pkgs, dirs, device, rec):
+    g = torch.Generator().manual_seed(2)
+    sess = pkgs["new"].RIFE(str(dirs["v2.3"]), device=device)
+    sites = pkgs["new"].engine.plan.conv_sites(sess, 1080, 1920)
+    del sess
+    total = {"old": [0.0, 0.0], "new": [0.0, 0.0]}
+    for i, (factor, parts, cout, stride, act, h, w, deconv) in \
+            enumerate(sites):
+        if deconv:
+            raise SystemExit(f"v2.3 conv site {i} is a deconv site in bf16")
+        b = 8 * factor
+        xs = [torch.randn(b, c, h, w, generator=g).to(device, torch.bfloat16)
+              for c in parts]
+        cin = sum(parts)
+        weight = (torch.randn(cout, cin, 3, 3, generator=g)
+                  / (3 * cin ** 0.5)).to(device, torch.bfloat16)
+        bias = (torch.randn(cout, generator=g) * 0.1).to(device)
+        slope = (torch.rand(cout, generator=g) * 0.3).to(device)
+        fns = {}
+        for side, pkg in pkgs.items():
+            cv = pkg.ops.conv
+            fns[side] = (lambda cv=cv, tc=cv.pack_weight_tc(weight):
+                         cv.conv3x3(xs, weight, bias, slope, stride=stride,
+                                    act=act, weight_tc=tc))
+        require_equal(fns, f"conv3x3 v2.3 site {i}")
+        got = in_turns(fns)
+        rec[f"conv3x3 v2.3 {i}"] = {
+            "site": [b, list(parts), cout, stride, act, h, w], "ms": got}
+        for side in total:
+            total[side] = [t + m for t, m in zip(total[side], got[side])]
+        print(f"conv3x3 v2.3 site {i} (B={b} parts={parts} cout={cout} "
+              f"s{stride} act{act} {h}x{w}): {got}, bit for bit",
+              flush=True)
+        del xs, weight
+    rec["conv3x3 v2.3 sum"] = total
+    print(f"conv3x3 over the {len(sites)} v2.3 sites: {total}", flush=True)
     torch.cuda.empty_cache()
 
 
@@ -243,6 +252,7 @@ def main() -> int:
     print(f"card: {card}; {torch.cuda.get_device_name(0)}", flush=True)
     rec = {"card": card}
     deconv_sites(pkgs, dirs, device, rec)
+    conv_sites(pkgs, dirs, device, rec)
     head_and_spatial(pkgs, device, rec)
     if not args.skip_steps:
         steps(pkgs, dirs, device, rec)
