@@ -126,8 +126,30 @@ on the one card named several times:
    each run's launches equal to ``ShardedRIFE.kernel_sites`` (no fused
    warp when height-sharded), its step time beside the unsharded step's
    and its halo and all-gather bytes;
-12. prints the kernels' JSON line (launches of each path's counted run), the
-   nvidia-smi line and, last, the ``{"ok": true, "device": ...}`` line.
+12. traces the plain v4.6 bf16 1080p B=8 session for 3 steps after its
+   warm-up inside ``utils/profiling.trace`` (``phase_profiling``): the
+   Chrome trace it writes holds CUDA kernel events, and each hand kernel
+   of the step, found by its CUDA symbol, launches ``plan.kernel_sites``
+   x 3 times; each kernel's summed device ms from the trace is printed;
+13. runs ``models/calibrate.py`` on the card (``phase_calibrate``, f32, TF32
+   off) at ``TEST_HW`` (544x960) on smooth synthetic frames from the numpy
+   seed, for the three reconstructions under their zoo names (``rife-v4.6``,
+   ``rife-v2.3``, ``rife``): the flow std at the baked scale, the scale the
+   bisection finds and its std, whether it ended at an edge of its bracket,
+   and (v2.3, v1) the fusionnet scale the sweep finds and its u8 output
+   std; and the flow std at the baked scale on 1088x1920 frames (a 1080p
+   step's padded size, where the bench fixtures run); finite and positive.
+   The stds at the baked scales are a finding about the fixtures, not a
+   bar.  Then, on the same 544x960 frames at the baked scales, the raw
+   flownet's flow tap (the f32 float warp on the raw graphs' ``rife.Warp``
+   nodes) and the f32 fusionnet step (u8 frame) on the card against the
+   CPU element by element: flow tap max |d| <= ``CAL_TAP_ABS`` px, u8 max
+   |d| <= ``CAL_U8_ABS`` with >= ``CAL_U8_EXACT`` of the values equal; the
+   path's launches are read from these card runs.  Last, the evaluations
+   at 64x96: flow std within 1e-3 relative, u8 output std within 0.05;
+14. prints the ``WallTimer`` report of the phases, the kernels' JSON line
+   (launches of each path's counted run), the nvidia-smi line and, last,
+   the ``{"ok": true, "device": ...}`` line.
 
 Any failed check raises and exits non-zero before the last line.  Without a
 card, or without the rest of the repository beside it, it exits non-zero.
@@ -228,6 +250,26 @@ KERNELS = {
 # the B4 deconv form's reference site: the v4.6 block tail,
 # deconv 64 -> 24 then PixelShuffle 2, at the 1/4 grid of a 1080p B=8 step
 DECONV_PS_SITE = ((64,), 24, 2, 272, 480)
+# the CUDA symbol of each launch counter the traced v4.6 step runs, as
+# ``kernel_symbol`` reads the trace's demangled names (``warp_pair`` is the
+# u8 form of ``warp_gather_kernel``)
+KERNEL_SYMBOLS = {
+    "warp_pair": "warp_gather_kernel", "warp_render": "warp_render_kernel",
+    "warp_ds4_pair": "warp_ds4_pair_kernel", "deconv4x4": "deconv4x4_kernel",
+}
+TRACE_STEPS = 3
+# the calibration: the three reconstructions under their zoo names; the
+# card against the CPU element by element at TEST_HW and the baked scales
+# (bars set from the card's readings, PERF.md section 6, PR 13), and by the
+# std at CAL_SMALL
+CAL_SMALL = (64, 96)
+CAL_SEED = 20261016  # the frames' own seed: readings independent of the
+                     # phases before
+CAL_FLOW_REL = 1e-3
+CAL_OUT_ABS = 0.05
+CAL_TAP_ABS = 1e-3   # px, the flow tap's max |d| (read: <= 1.011e-4)
+CAL_U8_ABS = 1       # the u8 frame's max |d| (read: 1)
+CAL_U8_EXACT = 0.999  # the share of u8 values equal (read: >= 0.999578)
 PAIR_KERNELS = {  # name: (wrapper, twin)
     "warp_ds4_pair": ("warp_ds4_pair", "warp_ds4_pair_ref"),
     "warp_pair": ("warp_pair", "warp_pair_ref"),
@@ -2068,6 +2110,188 @@ def cli_g_all(v46_dir, rng, card):
     return {"cli -g all": runs["cli -g all"]}
 
 
+def kernel_symbol(name: str) -> str:
+    """A trace kernel event's function name: its demangled name without
+    the argument list, the template arguments, the namespaces and the
+    return type."""
+    for opener, closer in (("(", ")"), ("<", ">")):
+        name = name.rstrip()
+        if not name.endswith(closer):
+            continue
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {closer: 1, opener: -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i]
+                break
+    return name.rsplit("::", 1)[-1].rsplit(" ", 1)[-1]
+
+
+def phase_profiling(device, v46_dir, card):
+    """``utils/profiling.trace`` around 3 steps of the plain v4.6 bf16 1080p
+    B=8 session: the trace holds CUDA kernel events, and each hand kernel
+    of the step, by its CUDA symbol, launches ``plan.kernel_sites`` x 3
+    times; returns (the launch counters of the traced steps, None)."""
+    import shutil
+
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.utils.profiling import trace
+
+    b, h, w = BENCH
+    sess = RIFE(str(v46_dir), device=device)
+    f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
+    d0 = torch.from_numpy(f0).to(device)
+    d1 = torch.from_numpy(f1).to(device)
+    ts = np.full(b, 0.5, np.float32)
+    sess.process_batch_device(d0, d1, ts)  # warm-up
+    torch.cuda.synchronize()
+    logdir = ROOT / "rife_tpu_torch" / "_build" / "trace"
+    shutil.rmtree(logdir, ignore_errors=True)
+    reset_counts()
+    with trace(str(logdir)):
+        for _ in range(TRACE_STEPS):
+            sess.process_batch_device(d0, d1, ts)
+    launches = read_counts()
+    files = sorted(logdir.glob("*.pt.trace.json"))
+    require(len(files) == 1, f"trace files under {logdir}: {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    require(bool(kernels), "the trace holds no CUDA kernel event")
+    per_step = kernel_sites(sess, h, w)
+    require(launches == {k: v * TRACE_STEPS for k, v in per_step.items()},
+            f"traced launches {launches} differ from the plan {per_step}")
+    require(set(per_step) <= set(KERNEL_SYMBOLS),
+            f"no CUDA symbol for {set(per_step) - set(KERNEL_SYMBOLS)}")
+    want = {}
+    for counter, n in per_step.items():
+        sym = KERNEL_SYMBOLS[counter]
+        want[sym] = want.get(sym, 0) + n * TRACE_STEPS
+    print(f"trace {files[0].name}: {len(events)} events, {len(kernels)} "
+          f"CUDA kernels over {TRACE_STEPS} steps of v4.6 bf16 "
+          f"{h}x{w} B={b}; card {card}", flush=True)
+    for sym, n in want.items():
+        hits = [e for e in kernels if kernel_symbol(e["name"]) == sym]
+        ms = sum(float(e["dur"]) for e in hits) / 1e3
+        print(f"trace kernel {sym}: {len(hits)} launches (plan {n}), "
+              f"{ms:.4f} ms device time over {TRACE_STEPS} steps; card "
+              f"{card}", flush=True)
+        require(len(hits) == n, f"trace: {sym} launched {len(hits)} times, "
+                f"the plan says {n}")
+    del sess
+    torch.cuda.empty_cache()
+    shutil.rmtree(logdir, ignore_errors=True)
+    return launches, None
+
+
+def cal_frames(rng, h, w):
+    """Smooth synthetic frames as the calibration takes them: (1,H,W,3)
+    float32 in [0, 1]."""
+    return tuple(f.astype(np.float32) / 255.0 for f in smooth_frames(rng, 1,
+                                                                     h, w))
+
+
+def phase_calibrate(device, dirs, card):
+    """``models/calibrate.py`` on the card at ``TEST_HW`` for each
+    reconstruction in ``dirs`` (written under its zoo name): the flow std at
+    the baked scale, the bisection's scale and std, the fusionnet sweep's
+    (the calibration's findings, printed, not held to a bar); then, on the
+    same frames at the baked scales, the raw flownet's flow tap and the f32
+    fusionnet step on the card against the CPU element by element, and the
+    stds at ``CAL_SMALL``.  Returns (the launch counters of the element-wise
+    card runs, None)."""
+    from rife_tpu_torch.engine.session import pad_to
+    from rife_tpu_torch.graph.weights import SYNTHETIC_FLOWNET_SCALE
+    from rife_tpu_torch.models import calibrate as cal
+
+    rng = np.random.default_rng(CAL_SEED)
+    h, w = cal.TEST_HW
+    frames = cal_frames(rng, h, w)
+    step_frames = cal_frames(rng, pad_to(BENCH[1]), BENCH[2])
+    for mdir in dirs:
+        name = mdir.name
+        flow_eval = cal.make_flownet_eval(str(mdir), frames, device)
+        baked = SYNTHETIC_FLOWNET_SCALE[name]
+        at_baked = flow_eval(baked)
+        scale, std = cal.search_flownet_scale(flow_eval)
+        line = (f"calibrate {name} at {h}x{w} (smooth synthetic frames from "
+                f"numpy seed {CAL_SEED}): flownet baked {baked} -> flow std "
+                f"{at_baked:.4f} px; found {scale} -> {std:.4f} px (target "
+                f"{cal.TARGET_FLOW_STD}), at an edge of {cal.SEARCH_RANGE}: "
+                f"{cal.at_search_edge(scale)}")
+        at_step = cal.make_flownet_eval(str(mdir), step_frames,
+                                        device)(baked)
+        line += (f"; at {pad_to(BENCH[1])}x{BENCH[2]} (a 1080p step's "
+                 f"padded frames) baked -> {at_step:.4f} px")
+        results = [at_baked, scale, std, at_step]
+        fus_eval, fus_baked = cal.make_fusionnet_eval(str(mdir), frames,
+                                                      device)
+        if fus_eval is not None:
+            out_baked = fus_eval(1.0)
+            fine, out_std = cal.search_fusionnet_scale(fus_eval)
+            line += (f"; fusionnet baked {fus_baked} -> u8 std "
+                     f"{out_baked:.4f}; found {round(fus_baked * fine, 4)} "
+                     f"-> {out_std:.4f} (target {cal.TARGET_OUT_STD})")
+            results += [out_baked, fine, out_std]
+        print(f"{line}; card {card}", flush=True)
+        require(all(np.isfinite(v) and v > 0 for v in results),
+                f"calibrate {name}: {results}")
+
+    def taps(mdir, dev):
+        flow = cal.make_flownet_tap(str(mdir), frames, dev)(
+            SYNTHETIC_FLOWNET_SCALE[mdir.name]).cpu()
+        step = cal.make_fusionnet_step(str(mdir), frames, dev)[0]
+        return flow, None if step is None else step(1.0).cpu()
+
+    reset_counts()
+    on_card = {mdir: taps(mdir, device) for mdir in dirs}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    for mdir in dirs:
+        (flow, out), (want_flow, want_out) = on_card[mdir], taps(mdir, "cpu")
+        require(flow.shape == want_flow.shape
+                and bool(torch.isfinite(flow).all()),
+                f"calibrate {mdir.name}: flow tap {tuple(flow.shape)} "
+                f"against {tuple(want_flow.shape)}")
+        d_flow = float((flow - want_flow).abs().max())
+        line = (f"calibrate {mdir.name} {h}x{w} cuda vs cpu element by "
+                f"element at {SYNTHETIC_FLOWNET_SCALE[mdir.name]}: flow tap "
+                f"{tuple(flow.shape)} max |d| {d_flow:.3e} px (max |flow| "
+                f"{float(want_flow.abs().max()):.4f})")
+        bad = d_flow > CAL_TAP_ABS
+        if out is not None:
+            require(out.shape == want_out.shape,
+                    f"calibrate {mdir.name}: u8 frame {tuple(out.shape)} "
+                    f"against {tuple(want_out.shape)}")
+            d_u8 = (out.int() - want_out.int()).abs()
+            exact = float((d_u8 == 0).double().mean())
+            line += (f", u8 frame {tuple(out.shape)} max |d| "
+                     f"{int(d_u8.max())}, exact {exact:.6f}")
+            bad |= int(d_u8.max()) > CAL_U8_ABS or exact < CAL_U8_EXACT
+        print(f"{line}; card {card}", flush=True)
+        require(not bad, f"{line}: beyond {CAL_TAP_ABS} px, or u8 beyond "
+                f"{CAL_U8_ABS} or under {CAL_U8_EXACT} exact")
+
+    small = cal_frames(rng, *CAL_SMALL)
+    for mdir in dirs:
+        s = SYNTHETIC_FLOWNET_SCALE[mdir.name]
+        got, want = (cal.make_flownet_eval(str(mdir), small, dev)(s)
+                     for dev in (device, "cpu"))
+        line = (f"calibrate {mdir.name} {CAL_SMALL[0]}x{CAL_SMALL[1]} cuda "
+                f"vs cpu: flow std {got:.6g} / {want:.6g} at {s}")
+        require(abs(got - want) <= CAL_FLOW_REL * want,
+                f"{line}: beyond {CAL_FLOW_REL} relative")
+        fus = [cal.make_fusionnet_eval(str(mdir), small, dev)[0]
+               for dev in (device, "cpu")]
+        if fus[0] is not None:
+            got, want = (f(1.0) for f in fus)
+            line += f", u8 output std {got:.4f} / {want:.4f}"
+            require(abs(got - want) <= CAL_OUT_ABS,
+                    f"{line}: beyond {CAL_OUT_ABS}")
+        print(line, flush=True)
+    return launches, None
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs one "
@@ -2080,6 +2304,7 @@ def main() -> int:
     from rife_tpu_torch.models.v23_arch import write_v23_params
     from rife_tpu_torch.models.v46_arch import write_flownet_param
     from rife_tpu_torch.native import build
+    from rife_tpu_torch.utils.profiling import WallTimer
 
     device = torch.device("cuda", 0)
     # f32 checks hold the card to f32: cuDNN convs default to TF32 on Hopper
@@ -2090,12 +2315,13 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
-    t0 = time.perf_counter()
-    log = build.compile_library()
-    build.load()
+    timer = WallTimer()
+    with timer.section("build"):
+        log = build.compile_library()
+        build.load()
     print(f"built {build.LIB_PATH.relative_to(ROOT)} from "
-          f"{build.SRC_DIR.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+          f"{build.SRC_DIR.relative_to(ROOT)} in "
+          f"{timer.totals['build']:.1f} s", flush=True)
     kernel = ""
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
@@ -2105,45 +2331,58 @@ def main() -> int:
                   flush=True)
 
     models = ROOT / "rife_tpu_torch" / "_build" / "models"
-    v46_dir = write_flownet_param(models)
-    v23_dir = write_v23_params(models)
-    v23 = RIFE(str(v23_dir), device=device)
-    require(v23.dtype == torch.bfloat16, "bf16 is the CUDA default")
-    sites = conv_sites(v23, BENCH[1], BENCH[2])
+    with timer.section("setup"):
+        v46_dir = write_flownet_param(models)
+        v23_dir = write_v23_params(models)
+        v23 = RIFE(str(v23_dir), device=device)
+        require(v23.dtype == torch.bfloat16, "bf16 is the CUDA default")
+        sites = conv_sites(v23, BENCH[1], BENCH[2])
     print(f"v2.3 conv3x3 sites at {BENCH[1]}x{BENCH[2]} (batch factor, "
           f"parts, cout, stride, act, H, W, deconv): {sites}", flush=True)
 
     rng = np.random.default_rng(20261016)
     torch.manual_seed(20261016)
     report = {}
-    phase_pair_kernels(device, rng, report)
-    phase_sigmoid(device, rng)
-    phase_warp_ds2(device, rng, report)
-    phase_single_warp(device, rng, report)
-    phase_uhd_warps(device, rng, report)
-    phase_conv(device, rng, report, sites)
-    v1_dir = write_v1_params(models)
-    ps_sites = conv_sites(RIFE(str(v1_dir), device="cpu"), BENCH[1],
-                          BENCH[2], "conv3x3_ps")
+    with timer.section("phase_pair_kernels"):
+        phase_pair_kernels(device, rng, report)
+    with timer.section("phase_sigmoid"):
+        phase_sigmoid(device, rng)
+    with timer.section("phase_warp_ds2"):
+        phase_warp_ds2(device, rng, report)
+    with timer.section("phase_single_warp"):
+        phase_single_warp(device, rng, report)
+    with timer.section("phase_uhd_warps"):
+        phase_uhd_warps(device, rng, report)
+    with timer.section("phase_conv"):
+        phase_conv(device, rng, report, sites)
+    with timer.section("setup"):
+        v1_dir = write_v1_params(models)
+        ps_sites = conv_sites(RIFE(str(v1_dir), device="cpu"), BENCH[1],
+                              BENCH[2], "conv3x3_ps")
     print(f"v1 conv3x3_ps sites at {BENCH[1]}x{BENCH[2]}: {ps_sites}",
           flush=True)
     require(ps_sites, "no conv3x3_ps site in the v1 step")
-    phase_conv_ps(device, rng, report, ps_sites)
+    with timer.section("phase_conv_ps"):
+        phase_conv_ps(device, rng, report, ps_sites)
     deconv_paths = {}
-    for path, mdir, modes, (b, h, w) in (
-            ("v4.6", v46_dir, {}, BENCH), ("v2.3", v23_dir, {}, BENCH),
-            ("v1", v1_dir, {}, BENCH),
-            ("v2.3 -u", v23_dir, {"uhd_mode": True}, UHD_BENCH)):
-        sess = RIFE(str(mdir), device=device, **modes)
-        deconv_paths[path] = (b, conv_sites(sess, h, w, "deconv4x4"))
-        del sess
+    with timer.section("setup"):
+        for path, mdir, modes, (b, h, w) in (
+                ("v4.6", v46_dir, {}, BENCH), ("v2.3", v23_dir, {}, BENCH),
+                ("v1", v1_dir, {}, BENCH),
+                ("v2.3 -u", v23_dir, {"uhd_mode": True}, UHD_BENCH)):
+            sess = RIFE(str(mdir), device=device, **modes)
+            deconv_paths[path] = (b, conv_sites(sess, h, w, "deconv4x4"))
+            del sess
     print(f"deconv4x4 sites of the bf16 steps (batch factor, (cin,), O, ps, "
           f"act, H, W, XLA order): {deconv_paths}", flush=True)
     require(all(sites for _, sites in deconv_paths.values()),
             "a bf16 step with no deconv4x4 site")
-    phase_deconv(device, rng, report, deconv_paths)
-    runs = {"v4.6": phase_v46(device, v46_dir, rng, card),
-            "v2.3": phase_v23(device, v23_dir, rng, card, v23)}
+    with timer.section("phase_deconv"):
+        phase_deconv(device, rng, report, deconv_paths)
+    with timer.section("phase_v46"):
+        runs = {"v4.6": phase_v46(device, v46_dir, rng, card)}
+    with timer.section("phase_v23"):
+        runs["v2.3"] = phase_v23(device, v23_dir, rng, card, v23)
     del v23
     torch.cuda.empty_cache()
     fused = {"fuse_ds2": True}
@@ -2152,28 +2391,41 @@ def main() -> int:
             ("v4.6", v46_dir, v46_arch.LABEL, V46_CHECK),
             ("v2.3", v23_dir, v23_arch.LABEL, V23_CHECK)):
         name = f"{model} fuse_ds2"
-        runs[name] = phase_modes(device, name, mdir, label, rng, card, check,
-                                 BENCH[0], FUSED_PER_STEP[model], **fused)
+        with timer.section("phase_modes"):
+            runs[name] = phase_modes(device, name, mdir, label, rng, card,
+                                     check, BENCH[0], FUSED_PER_STEP[model],
+                                     **fused)
         print(f"{model} bf16 1080p B={BENCH[0]}: fuse_ds2 "
               f"{runs[name][1]:.3f} frames/s, unfused {runs[model][1]:.3f} "
               f"frames/s; card {card}", flush=True)
         name = f"{model} -x -z fuse_ds2"
-        runs[name] = phase_modes(device, name, mdir, label, rng, card,
-                                 TTA_CHECK, TTA_BATCH, **tta)
-    runs["v2.3 -u"] = phase_uhd(device, v23_dir, rng, card)
+        with timer.section("phase_modes"):
+            runs[name] = phase_modes(device, name, mdir, label, rng, card,
+                                     TTA_CHECK, TTA_BATCH, **tta)
+    with timer.section("phase_uhd"):
+        runs["v2.3 -u"] = phase_uhd(device, v23_dir, rng, card)
     print(f"v2.3 bf16 4K -u B={UHD_BENCH[0]}: {runs['v2.3 -u'][1]:.3f} "
           f"frames/s; card {card}", flush=True)
-    runs["v1"] = phase_v1(device, v1_dir, card)
+    with timer.section("phase_v1"):
+        runs["v1"] = phase_v1(device, v1_dir, card)
     print(f"v1 rife bf16 1080p B={BENCH[0]}: {runs['v1'][1]:.3f} frames/s; "
           f"card {card}", flush=True)
-    runs["v1 -x -z"] = (check_on_card("v1 -x -z", v1_dir, device, rng,
-                                      TTA_CHECK, tta_mode=True,
-                                      tta_temporal_mode=True), None)
-    runs["v1 -u"] = (check_on_card("v1 -u", v1_dir, device, rng, UHD_CHECK,
-                                   uhd_mode=True), None)
-    runs.update(phase_cli(device, v46_dir, v23_dir, rng, card))
-    runs.update(phase_sharded(device, v46_dir, v23_dir, v1_dir, rng, report,
-                              card))
+    with timer.section("phase_v1_modes"):
+        runs["v1 -x -z"] = (check_on_card("v1 -x -z", v1_dir, device, rng,
+                                          TTA_CHECK, tta_mode=True,
+                                          tta_temporal_mode=True), None)
+        runs["v1 -u"] = (check_on_card("v1 -u", v1_dir, device, rng,
+                                       UHD_CHECK, uhd_mode=True), None)
+    with timer.section("phase_cli"):
+        runs.update(phase_cli(device, v46_dir, v23_dir, rng, card))
+    with timer.section("phase_sharded"):
+        runs.update(phase_sharded(device, v46_dir, v23_dir, v1_dir, rng,
+                                  report, card))
+    with timer.section("phase_profiling"):
+        runs["v4.6 traced"] = phase_profiling(device, v46_dir, card)
+    with timer.section("phase_calibrate"):
+        runs["calibrate"] = phase_calibrate(device,
+                                            (v46_dir, v23_dir, v1_dir), card)
     by_path = {path: launches for path, (launches, _) in runs.items()}
 
     kernels = []
@@ -2190,6 +2442,8 @@ def main() -> int:
             "launches_by_path": counts,
             **report[name],
         })
+    print(f"wall seconds by phase (WallTimer; card {card}): "
+          + "; ".join(timer.report().splitlines()), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -24,6 +24,13 @@ from ..graph.weights import LayerWeights, load_bin, synthesize_weights
 # working directory, as the reference CLI resolves ``-m`` beside itself)
 DEFAULT_MODEL_ROOT = Path("models")
 
+MODEL_NAMES = [
+    "rife", "rife-HD", "rife-UHD", "rife-anime",
+    "rife-v2", "rife-v2.3", "rife-v2.4",
+    "rife-v3.0", "rife-v3.1",
+    "rife-v4", "rife-v4.6",
+]
+
 
 def sniff_family(model_path: str) -> str:
     """'v1' | 'v2' | 'v4' from the model dir name (reference semantics:

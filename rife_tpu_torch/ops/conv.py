@@ -173,14 +173,19 @@ def deconv_route(node, h, w, cin, cout, ctx, device, dtype) -> str:
 # ---------------------------------------------------------------------------
 
 @contextlib.contextmanager
-def _full_f32():
-    """cuDNN convs run in TF32 by default on Hopper; the twin is f32."""
-    prev = torch.backends.cudnn.allow_tf32
+def full_f32():
+    """f32 convs and matmuls in f32 while it runs (cuDNN convs run in TF32
+    by default on Hopper, and a matmul may be set to); the twins and the
+    calibration (``models/calibrate.py``) are f32."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
 
 
 def activate_f32(y: torch.Tensor, act: int, alpha: float, slope):
@@ -203,7 +208,7 @@ def conv3x3_ref(parts, weight, bias=None, slope=None, *, stride=1,
     storage dtype of ``parts``; with ``ps`` > 1, ``F.pixel_shuffle`` of
     that."""
     x = torch.cat([p.float() for p in parts], dim=1)
-    with _full_f32():
+    with full_f32():
         y = F.conv2d(x, weight.float(), None, stride=stride, padding=1)
     if bias is not None:
         y = y + bias.float().reshape(1, -1, 1, 1)
@@ -304,7 +309,7 @@ def deconv4x4_xla_ref(x, weight, bias=None, slope=None, *, act=ACT_NONE,
     bias in that dtype, the activation in it (``activate_storage``) and,
     with ``ps`` > 1, ``F.pixel_shuffle``.  ``bias`` / ``slope`` (O,) in any
     float dtype, rounded to ``x``'s first."""
-    with _full_f32():
+    with full_f32():
         y = F.conv_transpose2d(x.float(), weight.float(), None, stride=2,
                                padding=1)
     y = y.to(x.dtype)

@@ -1114,3 +1114,60 @@ def test_sharding_over_two_cards(cuda_device, model_dir):
     one = ShardedRIFE(sess, make_mesh_2d(1, 2, [two[0]] * 2),
                       height_axis="spatial").process_batch(a, b, ts)
     assert np.array_equal(spread, one)
+
+
+def test_trace_records_the_hand_kernels(cuda_device, tmp_path):
+    """``utils/profiling.trace`` on the card: the Chrome trace names the
+    ctypes-launched kernel by its CUDA symbol, once a launch."""
+    import json
+
+    from rife_tpu_torch.utils.profiling import trace
+
+    img, flow = inputs(3, 2, 64, 96, torch.float32, cuda_device)[:2]
+    W.warp_feat(img, flow)  # build and load before the window
+    torch.cuda.synchronize()
+    with trace(str(tmp_path)):
+        for _ in range(2):
+            W.warp_feat(img, flow)
+    (path,) = tmp_path.glob("*.pt.trace.json")
+    kernels = [e["name"] for e in json.loads(path.read_text())["traceEvents"]
+               if e.get("cat") == "kernel"]
+    assert sum("warp_gather_kernel" in k for k in kernels) == 2, kernels
+
+
+@pytest.mark.parametrize("name", ["rife-v4.6", "rife-v2.3"])
+def test_calibration_evals_match_the_cpu(cuda_device, model_dir, v23_dir,
+                                         name):
+    """``models/calibrate.py`` on the card (f32, TF32 off within its scope)
+    against the CPU at the baked scale: flow std within 1e-3 relative, u8
+    output std within 0.05; element by element, the flow tap within 1e-3
+    px and the u8 frame within 1 (the smoke's bars at 544x960); the TF32
+    settings are restored after."""
+    from rife_tpu_torch.graph.weights import SYNTHETIC_FLOWNET_SCALE
+    from rife_tpu_torch.models import calibrate as cal
+
+    mdir = str(model_dir if name == "rife-v4.6" else v23_dir)
+    rng = np.random.default_rng(5)
+    frames = tuple(rng.uniform(0, 1, (1, 64, 96, 3)).astype(np.float32)
+                   for _ in range(2))
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    s = SYNTHETIC_FLOWNET_SCALE[name]
+    got, want = (cal.make_flownet_eval(mdir, frames, dev)(s)
+                 for dev in (cuda_device, "cpu"))
+    assert abs(got - want) <= 1e-3 * want, (got, want)
+    fus = [cal.make_fusionnet_eval(mdir, frames, dev)[0]
+           for dev in (cuda_device, "cpu")]
+    if name != "rife-v4.6":
+        got, want = (f(1.0) for f in fus)
+        assert abs(got - want) <= 0.05, (got, want)
+    got, want = (cal.make_flownet_tap(mdir, frames, dev)(s).cpu()
+                 for dev in (cuda_device, "cpu"))
+    assert float((got - want).abs().max()) <= 1e-3
+    steps = [cal.make_fusionnet_step(mdir, frames, dev)[0]
+             for dev in (cuda_device, "cpu")]
+    if name != "rife-v4.6":
+        got, want = (f(1.0).cpu().int() for f in steps)
+        assert int((got - want).abs().max()) <= 1
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == prev
