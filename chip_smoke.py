@@ -47,9 +47,16 @@ on the one card named several times:
    XLA's: its sums against the twin,
    its bias and activation bit for bit), timed beside cuDNN's
    ``conv_transpose2d`` + bias (+ activation, + ``pixel_shuffle``), the
-   route it replaced; f32 planar sites on the phase conv.  Every timed
-   kernel is
-   printed beside its
+   route it replaced; f32 planar sites on the f32 kernel's deconv mode.
+   The f32 conv kernel (``phase_conv_f32``) at every f32 ``conv3x3`` site
+   of a 1080p B=8 v2.3 and v1 step (``plan.conv_sites`` of f32 sessions:
+   conv sites, deconv sites in its deconv mode, v1's head with ``ps`` 2),
+   one launch each, against its twin, timed beside its twin, cuDNN f32
+   with TF32 off and its f32 bound (f32 bytes over 3.35 TB/s or 2 x MACs
+   over the FP32 pipes at ``clocks.max.sm``), summed over each step, each
+   site weighted by its launches a step; then the f32 v2.3 step's device
+   time.
+   Every other timed kernel is printed beside its
    bound (bytes once over 3.35 TB/s, or bf16 FLOP over 989 TFLOP/s) and,
    for ``warp_feat``, ``grid_sample`` on a prebuilt grid.  Bars: warps f32
    max |d| <= 2e-6, conv3x3 f32 max |d| <= 1e-5 of the largest output;
@@ -159,6 +166,7 @@ Run from the repository root: ``python3 chip_smoke.py``
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -231,6 +239,8 @@ SHARDED_WARPS = [("u8", True, (2, 3, 1088, 1920)),
 SHARDED_BF16_PSNR_DB = 50.0
 HBM_BYTES_S = 3.35e12   # H100 SXM device memory rate
 BF16_FLOP_S = 989e12    # H100 SXM dense bf16 tensor-core rate
+FP32_LANES = 128        # FP32 FMA lanes an SM (Hopper)
+F32_SEED = 20261017     # the f32 conv sites' inputs
 WARP_SRC = "rife_tpu/ops/warp_pallas.py"
 CONV_SRC = "rife_tpu/ops/conv_planar.py"
 KERNELS = {
@@ -684,74 +694,256 @@ def conv_site_bound(b, parts, cout, stride, h, w, deconv):
 
 
 def phase_conv(device, rng, report, sites):
-    """``conv3x3`` at each site of one 1080p B=8 step, random weights, every
-    activation as the site has it, against its twin (deconv sites through
-    ``deconv4x4``, the phases interleaved by the kernel, against
-    ``deconv4x4_ref``).  bf16 per site: the kernel's time, cuDNN's on the
-    same call (``conv2d`` on the concat; ``conv_transpose2d`` on the raw
-    weights, whose output is interleaved already), the site's bound and the
-    kernel's share of it; then each summed over the step."""
+    """bf16 ``conv3x3`` at each site of one bf16 1080p B=8 v2.3 step (none
+    is a deconv site: bf16 deconvs take the deconv kernel), random weights,
+    every activation as the site has it, against its twin; per site the
+    kernel's time, cuDNN's on the same call (``conv2d`` on the concat), the
+    site's bound and the kernel's share of it; then each summed over the
+    step.  (The f32 sites: ``phase_conv_f32``.)"""
     from rife_tpu_torch.ops import conv as CV
 
     F = torch.nn.functional
-    for dtype in (torch.bfloat16, torch.float32):
-        sums = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
-        for i, (factor, parts, cout, stride, act, h, w, deconv) in \
-                enumerate(sites):
-            b = factor * BENCH[0]
-            xs = [torch.randn(b, c, h, w, device=device).to(dtype)
-                  for c in parts]
-            cin = sum(parts)
-            bias = torch.randn(cout, device=device) * 0.1
-            slope = torch.rand(cout, device=device) * 0.3
-            if deconv:
-                raw = (torch.randn(cin, cout // 4, 4, 4, device=device)
-                       * (1.0 / (2.0 * cin ** 0.5))).to(dtype)
-                weight = CV.deconv_phase_weights(raw).contiguous()
-                packed = CV.pack_weight_tc(weight)
-                kfn = lambda x, wt, bi, sl: CV.deconv4x4(  # noqa: E731
-                    x[0], wt, bi, sl, act=act, phase_weight_tc=packed)
-                tfn = lambda x, wt, bi, sl: CV.deconv4x4_ref(  # noqa: E731
-                    x[0], wt, bi, sl, act=act)
-                scale = CV.deconv4x4_ref(xs[0].float().abs(),
-                                         weight.float().abs())
-                library = lambda: F.conv_transpose2d(  # noqa: E731
-                    xs[0], raw, None, stride=2, padding=1)
-            else:
-                weight = (torch.randn(cout, cin, 3, 3, device=device)
-                          * (1.0 / (3.0 * cin ** 0.5))).to(dtype)
-                packed = CV.pack_weight_tc(weight)
-                kfn = lambda x, wt, bi, sl: CV.conv3x3(  # noqa: E731
-                    x, wt, bi, sl, stride=stride, act=act, weight_tc=packed)
-                tfn = lambda x, wt, bi, sl: CV.conv3x3_ref(  # noqa: E731
-                    x, wt, bi, sl, stride=stride, act=act)
-                scale = CV.conv3x3_ref([x.float().abs() for x in xs],
-                                       weight.float().abs(), stride=stride)
-                cat = torch.cat(xs, dim=1)
-                library = lambda: F.conv2d(  # noqa: E731
-                    cat, weight, None, stride=stride, padding=1)
-            timed = dtype == torch.bfloat16
-            bound = conv_site_bound(b, parts, cout, stride, h, w, deconv)
-            ms, lib = check_pair(
-                report, "conv3x3", kfn, tfn, (xs, weight, bias, slope), dtype,
-                f"site {i}: B={b} parts={parts} cout={cout} s{stride} act{act} "
-                f"{h}x{w}{' deconv' if deconv else ''}", timed, f32_rel=1e-5,
-                iters=10, bound=bound if timed else None,
-                library=library if timed else None, scale=scale)
-            if timed:
-                sums["kernel"] += ms
-                sums["cudnn"] += lib
-                sums["bound"] += bound[0]
-                print(f"  site {i}: kernel {ms:.4f} ms, cuDNN bf16 {lib:.4f} "
-                      f"ms, bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
-                      f"{100 * bound[0] / ms:.1f}% of its bound", flush=True)
-            del xs, weight, scale, library
-        if dtype == torch.bfloat16:
-            print(f"conv3x3 bf16 over the {len(sites)} sites of one step: "
-                  f"kernel {sums['kernel']:.4f} ms, cuDNN bf16 "
-                  f"{sums['cudnn']:.4f} ms, bound {sums['bound']:.4f} ms, "
-                  f"kernel at {100 * sums['bound'] / sums['kernel']:.1f}% of "
-                  f"the bound", flush=True)
+    dtype = torch.bfloat16
+    sums = {"kernel": 0.0, "cudnn": 0.0, "bound": 0.0}
+    for i, (factor, parts, cout, stride, act, h, w, deconv) in \
+            enumerate(sites):
+        require(not deconv, f"bf16 conv3x3 site {i} is a deconv site")
+        b = factor * BENCH[0]
+        xs = [torch.randn(b, c, h, w, device=device).to(dtype)
+              for c in parts]
+        cin = sum(parts)
+        bias = torch.randn(cout, device=device) * 0.1
+        slope = torch.rand(cout, device=device) * 0.3
+        weight = (torch.randn(cout, cin, 3, 3, device=device)
+                  * (1.0 / (3.0 * cin ** 0.5))).to(dtype)
+        packed = CV.pack_weight_tc(weight)
+        kfn = lambda x, wt, bi, sl: CV.conv3x3(  # noqa: E731
+            x, wt, bi, sl, stride=stride, act=act, weight_tc=packed)
+        tfn = lambda x, wt, bi, sl: CV.conv3x3_ref(  # noqa: E731
+            x, wt, bi, sl, stride=stride, act=act)
+        scale = CV.conv3x3_ref([x.float().abs() for x in xs],
+                               weight.float().abs(), stride=stride)
+        cat = torch.cat(xs, dim=1)
+        library = lambda: F.conv2d(  # noqa: E731
+            cat, weight, None, stride=stride, padding=1)
+        bound = conv_site_bound(b, parts, cout, stride, h, w, deconv)
+        ms, lib = check_pair(
+            report, "conv3x3", kfn, tfn, (xs, weight, bias, slope), dtype,
+            f"site {i}: B={b} parts={parts} cout={cout} s{stride} act{act} "
+            f"{h}x{w}", True, iters=10, bound=bound, library=library,
+            scale=scale)
+        sums["kernel"] += ms
+        sums["cudnn"] += lib
+        sums["bound"] += bound[0]
+        print(f"  site {i}: kernel {ms:.4f} ms, cuDNN bf16 {lib:.4f} "
+              f"ms, bound {bound[0]:.4f} ms ({bound[1]}), kernel at "
+              f"{100 * bound[0] / ms:.1f}% of its bound", flush=True)
+        del xs, weight, scale, library
+    print(f"conv3x3 bf16 over the {len(sites)} sites of one step: "
+          f"kernel {sums['kernel']:.4f} ms, cuDNN bf16 "
+          f"{sums['cudnn']:.4f} ms, bound {sums['bound']:.4f} ms, "
+          f"kernel at {100 * sums['bound'] / sums['kernel']:.1f}% of "
+          f"the bound", flush=True)
+    torch.cuda.empty_cache()
+
+
+def fp32_peak():
+    """(FLOP/s, SM clock MHz, SMs) of the FP32 pipes outside the tensor
+    cores: 2 x 128 FMA lanes an SM x the SMs x the card's maximum SM clock
+    (nvidia-smi clocks.max.sm)."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True, timeout=60).stdout
+    mhz = float(out.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 2.0 * FP32_LANES * sms * mhz * 1e6, mhz, sms
+
+
+def conv_site_bound_f32(b, parts, cout, stride, h, w, deconv, flop_s):
+    """(ms, what sets it) of one f32 conv3x3 site: f32 input, weights and
+    output once, f32 bias and slope; 2 x the MACs over ``flop_s`` (the FP32
+    pipes' peak, ``fp32_peak``).  A deconv site (``cout`` = 4 x its O
+    channels) counts the 4x4 transposed conv's 16 taps, not the phase
+    form's zeros, and its (B, O, 2H, 2W) output."""
+    cin = sum(parts)
+    if deconv:
+        o = cout // 4
+        out = b * o * 4 * h * w
+        n_bytes = 4 * (b * cin * h * w + 16 * cin * o + out) + 8 * o
+        macs = 16 * cin * o * h * w * b
+    else:
+        ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+        out = b * cout * ho * wo
+        n_bytes = 4 * (b * cin * h * w + 9 * cin * cout + out) + 8 * cout
+        macs = 9 * cin * out
+    by_bytes, by_ops = n_bytes / HBM_BYTES_S, 2.0 * macs / flop_s
+    return (max(by_bytes, by_ops) * 1e3,
+            "bytes" if by_bytes >= by_ops else "operations")
+
+
+def f32_site_fns(device, gen, site, ps):
+    """(kernel, twin, cuDNN) thunks of one f32 conv3x3 site on random
+    inputs from ``gen``: ``deconv4x4`` / ``deconv4x4_ref`` /
+    ``conv_transpose2d`` on the raw weights at a deconv site, else
+    ``conv3x3`` / ``conv3x3_ref`` / ``conv2d`` on the concat (with ``ps`` >
+    1 each followed by its PixelShuffle)."""
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    factor, parts, cout, stride, act, h, w, deconv = site
+    b, cin = factor * BENCH[0], sum(parts)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, device=device, generator=gen) * scale
+    xs = [randn(b, c, h, w) for c in parts]
+    if deconv:
+        o = cout // 4
+        raw = randn(cin, o, 4, 4, scale=1.0 / (2.0 * cin ** 0.5))
+        w3 = CV.deconv_phase_weights(raw).contiguous()
+        t4 = CV.pack_weight_t4(raw)
+        b4 = randn(o, scale=0.1).repeat(4)
+        s4 = (randn(o).abs() * 0.3).repeat(4)
+        x = xs[0]
+        return (lambda: CV.deconv4x4(x, w3, b4, s4, act=act, weight_t4=t4,
+                                     ps=ps),
+                lambda: CV.deconv4x4_ref(x, w3, b4, s4, act=act, ps=ps),
+                lambda: F.conv_transpose2d(x, raw, None, stride=2,
+                                           padding=1))
+    weight = randn(cout, cin, 3, 3, scale=1.0 / (3.0 * cin ** 0.5))
+    tc = CV.pack_weight_tc(weight)
+    bias, slope = randn(cout, scale=0.1), randn(cout).abs() * 0.3
+    cat = torch.cat(xs, dim=1)
+
+    def library():
+        y = F.conv2d(cat, weight, None, stride=stride, padding=1)
+        return F.pixel_shuffle(y, ps) if ps > 1 else y
+    return (lambda: CV.conv3x3(xs, weight, bias, slope, stride=stride,
+                               act=act, weight_tc=tc, ps=ps),
+            lambda: CV.conv3x3_ref(xs, weight, bias, slope, stride=stride,
+                                   act=act, ps=ps),
+            library)
+
+
+@contextlib.contextmanager
+def count_interleaves():
+    """Calls of ``ops/conv.py`` ``interleave_phases`` while it runs (the
+    f32 deconv mode writes the interleaved output itself: none)."""
+    from rife_tpu_torch.ops import conv as CV
+
+    calls, plain = [], CV.interleave_phases
+
+    def counted(y4):
+        calls.append(tuple(y4.shape))
+        return plain(y4)
+    CV.interleave_phases = counted
+    try:
+        yield calls
+    finally:
+        CV.interleave_phases = plain
+
+
+def phase_conv_f32(device, report, paths, card):
+    """f32 ``conv3x3`` at every f32 site of a 1080p B=8 step of each path
+    ({path: [(site, PixelShuffle factor, launches a step)]} from
+    ``plan.conv_site_counts`` of an f32 session: the conv sites, the deconv
+    sites (``deconv4x4``, the deconv mode) and v1's head (``ps`` 2)),
+    random inputs from their own seed: one launch of the kernel, held
+    against its twin at the f32 bar; per site the kernel's time, the
+    twin's, cuDNN's f32 with TF32 off (``full_f32``), the f32 bound and the
+    kernel's share; the sums over each step, each site times its launches;
+    then the f32 v2.3 step's device time and the conv kernel's part of it
+    (``torch.profiler``)."""
+    from rife_tpu_torch.ops import conv as CV
+
+    flop_s, mhz, sms = fp32_peak()
+    print(f"f32 bound: HBM {HBM_BYTES_S / 1e12:.2f} TB/s, FP32 pipes "
+          f"{flop_s / 1e12:.2f} TFLOP/s ({sms} SMs x {FP32_LANES} FMA lanes "
+          f"x 2 x {mhz:.0f} MHz, nvidia-smi clocks.max.sm); card {card}",
+          flush=True)
+    gen = torch.Generator(device=device).manual_seed(F32_SEED)
+    rep = report["conv3x3"].setdefault("f32", {})
+    for path, sites in paths.items():
+        sums = dict.fromkeys(("kernel", "twin", "cudnn", "bound"), 0.0)
+        for i, (site, ps, n) in enumerate(sites):
+            factor, parts, cout, stride, act, h, w, deconv = site
+            kfn, tfn, library = f32_site_fns(device, gen, site, ps)
+            CV.reset_launches()
+            with count_interleaves() as copies:
+                got = kfn()
+            torch.cuda.synchronize()
+            counter = "conv3x3_ps" if ps > 1 else "conv3x3"
+            launched = {k: v for k, v in CV.LAUNCHES.items() if v}
+            require(launched == {counter: 1},
+                    f"f32 {path} site {i}: {launched}, not one {counter}")
+            require(not copies, f"f32 {path} site {i}: interleave_phases ran")
+            err = compare(got, tfn(), torch.float32, f32_rel=1e-5)
+            del got
+            ms = time_ms(kfn, 10)
+            twin = time_ms(tfn, 3)
+            with CV.full_f32():
+                lib = time_ms(library, 10)
+            bound = conv_site_bound_f32(factor * BENCH[0], parts, cout, stride,
+                                        h, w, deconv, flop_s)
+            label = (f"B={factor * BENCH[0]} parts={parts} cout={cout} "
+                     f"s{stride} act{act} {h}x{w}"
+                     f"{' deconv' if deconv else ''}"
+                     f"{f' ps{ps}' if ps > 1 else ''}")
+            print(f"conv3x3 f32 {path} site {i} ({label}, {n} launch"
+                  f"{'es' if n > 1 else ''} a step): max|d| vs twin "
+                  f"{err:.3g}, kernel {ms:.4f} ms, twin {twin:.4f} ms, cuDNN "
+                  f"f32 TF32 off {lib:.4f} ms, bound {bound[0]:.4f} ms "
+                  f"({bound[1]}), kernel at {100 * bound[0] / ms:.1f}% of "
+                  f"its bound, cuDNN at {100 * bound[0] / lib:.1f}%",
+                  flush=True)
+            for key, val in (("kernel", ms), ("twin", twin), ("cudnn", lib),
+                             ("bound", bound[0])):
+                sums[key] += n * val
+            rep["max_abs_err"] = max(rep.get("max_abs_err", 0.0), err)
+            del kfn, tfn, library
+            torch.cuda.empty_cache()
+        launches = sum(n for _, _, n in sites)
+        print(f"conv3x3 f32 over a {path} 1080p B={BENCH[0]} step ({launches} "
+              f"launches at {len(sites)} distinct sites): kernel "
+              f"{sums['kernel']:.4f} ms, twin {sums['twin']:.4f} ms, cuDNN "
+              f"f32 TF32 off {sums['cudnn']:.4f} ms, bound "
+              f"{sums['bound']:.4f} ms, kernel at "
+              f"{100 * sums['bound'] / sums['kernel']:.1f}% of the bound; "
+              f"card {card}", flush=True)
+        rep[path] = {"sites": len(sites), "launches_a_step": launches,
+                     "ms": sums["kernel"], "plain_ms": sums["twin"],
+                     "library_ms": sums["cudnn"], "bound_ms": sums["bound"]}
+
+
+def f32_step_device_ms(device, model_dir, report, card):
+    """Device time of one f32 v2.3 1080p B=8 step (``torch.profiler``, the
+    step after a warm-up): every kernel, and the f32 conv kernel's launches
+    (symbols with ``conv3x3``) in it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rife_tpu_torch import RIFE
+
+    b, h, w = BENCH
+    sess = RIFE(str(model_dir), device=device, dtype=torch.float32)
+    f0, f1 = smooth_frames(np.random.default_rng(7), b, h, w)
+    d0, d1 = (torch.from_numpy(f).to(device) for f in (f0, f1))
+    ts = np.full(b, 0.5, np.float32)
+    sess.process_batch_device(d0, d1, ts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sess.process_batch_device(d0, d1, ts)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    conv = [e for e in events if "conv3x3" in e.key]
+    conv_ms = sum(e.self_device_time_total for e in conv) / 1e3
+    n = sum(e.count for e in conv)
+    print(f"f32 v2.3 1080p B={b} step: device time {total:.4f} ms, of it "
+          f"the f32 conv kernel {conv_ms:.4f} ms over {n} launches "
+          f"({100 * conv_ms / total:.1f}%); card {card}", flush=True)
+    report["conv3x3"]["f32"]["v2.3 step_device_ms"] = total
+    report["conv3x3"]["f32"]["v2.3 step_conv_ms"] = conv_ms
+    del sess
     torch.cuda.empty_cache()
 
 
@@ -855,8 +1047,8 @@ def phase_deconv(device, rng, report, paths):
     beside its twin, its bound and cuDNN's ``conv_transpose2d`` with the
     bias (+ the activation in bf16, + ``pixel_shuffle``), the route it
     replaced; the v4.6 step's sites are the kernel's report.  f32 at the
-    planar sites: ``deconv4x4``'s phase conv on the CUDA cores against its
-    twin."""
+    planar sites: ``deconv4x4`` on the f32 conv kernel's deconv mode (no
+    ``interleave_phases``) against its twin."""
     from rife_tpu_torch.ops import conv as CV
 
     F = torch.nn.functional
@@ -961,7 +1153,7 @@ def phase_deconv(device, rng, report, paths):
               f"step (B={b}): kernel {sums[0]:.4f} ms, cuDNN route "
               f"{sums[1]:.4f} ms, bound {sums[2]:.4f} ms", flush=True)
         torch.cuda.empty_cache()
-    # f32 keeps the phase conv (CUDA cores) at the planar sites
+    # f32 planar sites take the f32 conv kernel's deconv mode
     for path, (b, sites) in paths.items():
         for factor, parts, co, ps, act, h, w, xla in sites:
             if xla:
@@ -972,15 +1164,18 @@ def phase_deconv(device, rng, report, paths):
             w3 = CV.deconv_phase_weights(raw).contiguous()
             b4 = (torch.randn(co, device=device) * 0.1).repeat(4)
             CV.reset_launches()
-            got = CV.deconv4x4(x, w3, b4, None, act=CV.ACT_RELU, ps=ps)
+            with count_interleaves() as copies:
+                got = CV.deconv4x4(x, w3, b4, None, act=CV.ACT_RELU,
+                                   weight_t4=CV.pack_weight_t4(raw), ps=ps)
             want = CV.deconv4x4_ref(x, w3, b4, None, act=CV.ACT_RELU, ps=ps)
             torch.cuda.synchronize()
             require(CV.LAUNCHES["conv3x3" if ps == 1 else "conv3x3_ps"] == 1
-                    and CV.LAUNCHES["deconv4x4"] == 0,
-                    f"f32 deconv site {path}: not the phase conv")
+                    and CV.LAUNCHES["deconv4x4"] == 0 and not copies,
+                    f"f32 deconv site {path}: not the f32 kernel's deconv "
+                    f"mode")
             compare(got, want, torch.float32, f32_rel=1e-5)
-    print("deconv4x4: f32 planar sites on conv3x3's phase conv match the "
-          "twin", flush=True)
+    print("deconv4x4: f32 planar sites on the f32 kernel's deconv mode "
+          "match the twin", flush=True)
 
 
 def assert_u8_close(got, want, what):
@@ -2298,7 +2493,8 @@ def main() -> int:
               "NVIDIA GPU", file=sys.stderr)
         return 1
     from rife_tpu_torch import RIFE
-    from rife_tpu_torch.engine.plan import conv_sites
+    from rife_tpu_torch.engine.plan import (conv_site_counts, conv_sites,
+                                            kernel_sites)
     from rife_tpu_torch.models import v23_arch, v46_arch
     from rife_tpu_torch.models.v1_arch import write_v1_params
     from rife_tpu_torch.models.v23_arch import write_v23_params
@@ -2364,6 +2560,28 @@ def main() -> int:
     require(ps_sites, "no conv3x3_ps site in the v1 step")
     with timer.section("phase_conv_ps"):
         phase_conv_ps(device, rng, report, ps_sites)
+    f32_paths = {}
+    with timer.section("setup"):
+        for path, mdir in (("v2.3", v23_dir), ("v1", v1_dir)):
+            sess = RIFE(str(mdir), device=device, dtype=torch.float32)
+            f32_paths[path] = [
+                (site, 2 if kind == "conv3x3_ps" else 1, n)
+                for kind in ("conv3x3", "conv3x3_ps")
+                for site, n in conv_site_counts(sess, BENCH[1], BENCH[2],
+                                                kind)]
+            per_step = kernel_sites(sess, BENCH[1], BENCH[2])
+            for kind, ps in (("conv3x3", 1), ("conv3x3_ps", 2)):
+                got = sum(n for _, p, n in f32_paths[path] if p == ps)
+                require(got == per_step.get(kind, 0),
+                        f"f32 {path}: {got} {kind} launches at its sites, "
+                        f"the plan says {per_step.get(kind, 0)}")
+            del sess
+    print(f"f32 conv3x3 sites at {BENCH[1]}x{BENCH[2]} ((batch factor, "
+          f"parts, cout, stride, act, H, W, deconv), PixelShuffle, launches "
+          f"a step): {f32_paths}", flush=True)
+    with timer.section("phase_conv_f32"):
+        phase_conv_f32(device, report, f32_paths, card)
+        f32_step_device_ms(device, v23_dir, report, card)
     deconv_paths = {}
     with timer.section("setup"):
         for path, mdir, modes, (b, h, w) in (

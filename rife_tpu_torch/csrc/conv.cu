@@ -3,8 +3,8 @@
 // 1-4 input parts (the concat is never built), f32 accumulation, the f32
 // bias and the activation (none, ReLU, leaky, per-channel PReLU) in f32 and
 // one rounding to the storage dtype.
-// In f32 a deconv site (4x4 stride-2 transposed conv) runs as the stride-1
-// conv over its four output phases; in bf16 it takes csrc/deconv.cu.  Plain C
+// In f32 a deconv site (4x4 stride-2 transposed conv) runs on the f32
+// kernel's deconv mode; in bf16 it takes csrc/deconv.cu.  Plain C
 // interface, loaded with ctypes by rife_tpu_torch/native/build.py; the
 // PyTorch wrapper, the plain twins, the weight packing and the site gates are
 // in rife_tpu_torch/ops/conv.py.
@@ -58,14 +58,49 @@
 //   epilogue); each warp stages its output row through shared memory and
 //   writes 16-byte vectors along x in NCHW.
 //
-// f32 (not the main path) keeps the CUDA-core kernel conv3x3_kernel: TF32
-// tensor cores would break the f32 bars.
+// f32 (RIFE(..., dtype=torch.float32), the calibration, the smoke's
+// fidelity checks): conv3x3_f32_kernel on the FP32 pipes (TF32 tensor cores
+// would change the f32 arithmetic).  It replaces, in f32, the same Pallas
+// kernels as above (_conv_planar_s1_direct :309, _conv_planar_s2_direct_cat
+// :485, conv_planar_bhcw :97, conv_s2_bhcw :190) and B4's f32 forms
+// (conv_ps_planar :756: the conv, then F.pixel_shuffle; deconv_planar :732
+// / deconv_ps_planar :784: its deconv mode).
+//
+// What bounds it on the H100: a v2.3 1080p B=8 step's 11 f32 sites do
+// 218.5 GMAC over 11.5 GB of f32 bytes: 6.5 ms at 66.9 TFLOP/s (132 SMs x 128
+// lanes x 2 x 1.98 GHz) against 3.4 ms at 3.35 TB/s; the wide sites (32 ->
+// 32 and up) are bounded by the FMAs, the 3-channel ones by bytes.  An FMA
+// needs one shared-memory word per R x 8 (the window's column) or per 8 x R
+// (a weight) FMAs, and every other instruction takes a dispatch slot from
+// them, so the design is about feeding the FMAs:
+// - a thread computes R output rows x 8 channels (deconv: R rows x 4
+//   phases x 4 channels) of one column: each tap's 8 weights are two
+//   float4 broadcasts and each of its window values one load a row, for 64
+//   FMAs; R makes a tile 16 rows (conv 4 wc, deconv 2 wc);
+// - blocks are persistent over the tiles of their channel group and keep
+//   the group's weights resident in shared memory where they fit with two
+//   stages in half an SM (else each stage carries its chunk's), so two
+//   blocks share an SM at <= 128 registers;
+// - input channels stream through a ring of two cp.async stages, the next
+//   (of this tile or the next) landing while this one's FMAs run: 16-byte
+//   copies of rows aligned at the tile's first column - 4 (W % 4 == 0; else
+//   4-byte copies), zero-filled outside the frame; chunks split Cin evenly
+//   and stage no channel past it;
+// - the deconv mode does only the four non-zero taps of each output phase
+//   (2.25x fewer FMAs than the phase conv) and stores each phase pair as
+//   one float2 of the interleaved output.
+// Each output keeps the sum order of the conv3x3_kernel it replaced, so
+// the result is bit for bit that kernel's (see conv3x3_f32_kernel).  The
+// tile geometry and the launch plan (channel groups, tiles, stages, resident
+// weights) are conv_f32_plan.h's, which a host compiler builds too.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <mutex>
+
+#include "conv_f32_plan.h"
 
 namespace {
 
@@ -78,19 +113,13 @@ struct Parts {
   int ch[kMaxParts];
 };
 
-__device__ __forceinline__ float activate(float v, int act, float alpha, float slope) {
-  switch (act) {
-    case kRelu: return fmaxf(v, 0.0f);
-    case kLeaky: return v >= 0.0f ? v : __fmul_rn(v, alpha);
-    case kPrelu: return v >= 0.0f ? v : __fmul_rn(v, slope);
-    default: return v;
-  }
-}
-
-__device__ __forceinline__ float epilogue(float v, int co, const float* bias, int act,
-                                          float alpha, const float* slope) {
-  if (bias != nullptr) v = __fadd_rn(v, bias[co]);
-  return activate(v, act, alpha, slope != nullptr ? slope[co] : 0.0f);
+// The f32 bias (has_bias) and the activation of one sum: ReLU, or leaky
+// and PReLU with the negative-side factor k, products rounded once
+__device__ __forceinline__ float finish(float v, bool has_bias, float b, int act, float k) {
+  if (has_bias) v = __fadd_rn(v, b);
+  if (act == kRelu) return fmaxf(v, 0.0f);
+  if (act != kNone) return v >= 0.0f ? v : __fmul_rn(v, k);
+  return v;
 }
 
 // plane of channel c of batch item b in the parts (null past cin)
@@ -111,144 +140,314 @@ __device__ __forceinline__ const T* channel_plane(const Parts& parts, int b, int
 // f32: the CUDA-core kernel
 // ---------------------------------------------------------------------------
 
-constexpr int kTx = 32;  // threads along x, one output column each
-constexpr int kTy = 8;   // threads along y
-constexpr int kCo = 16;  // output channels per block (registers per thread)
+using rife_f32::kGroupCh;
+constexpr int kF32Threads = rife_f32::kThreads;
 
-template <int S>
-struct Tile {
-  static constexpr int kPy = S == 1 ? 4 : 2;       // output rows per thread
-  static constexpr int kOh = kTy * kPy;             // output rows per block
-  static constexpr int kOw = kTx;                   // output columns per block
-  static constexpr int kIh = (kOh - 1) * S + 3;     // input rows with halo
-  static constexpr int kIw = (kOw - 1) * S + 3;     // input columns with halo
-  static constexpr int kCi = S == 1 ? 8 : 4;        // input channels per stage
-  static constexpr int kWin = (kPy - 1) * S + 3;    // rows of a thread's window
+struct F32Args {
+  Parts parts;
+  const float* weight;  // conv: (9, cout, cp) (pack_weight_tc); deconv: (16, cout, cp)
+  const float* bias;    // (cout,), deconv (4 cout,) phase-tiled; or null
+  const float* slope;   // as bias, PReLU only
+  float* out;
+  int cin, cp, h, w, cout, ho, wo, act;
+  float alpha;
+  int kc, n_chunks;     // channels a stage holds, chunks of the input channels
+  int tiles_x, tiles_y, n_tiles;  // the tiles of a channel group (all batch items)
+  int vec;              // 16-byte input copies (W % 4 == 0, parts 16-byte aligned)
+  int resident;         // a block's weights stay in shared memory for all its tiles
 };
 
-// A block computes a 32-wide output tile of 32 rows (stride 1) or 16 rows
-// (stride 2) for 16 output channels; 256 threads, each one output column, 4
-// (or 2) output rows and the 16 channels.  Input channels stream through
-// shared memory in stages of 8 (or 4), the stage's weights laid out [ci][tap]
-// [co] so a thread reads its 16 weights of a tap as four float4 broadcasts.
-template <int S>
-__global__ void __launch_bounds__(kTx * kTy)
-conv3x3_kernel(Parts parts, const float* __restrict__ weight, const float* __restrict__ bias,
-               const float* __restrict__ slope, float* __restrict__ out, int cin, int h, int w,
-               int cout, int ho, int wo, int act, float alpha, int n_groups) {
-  using Tl = Tile<S>;
-  __shared__ float xs[Tl::kCi][Tl::kIh][Tl::kIw];
-  __shared__ __align__(16) float ws[Tl::kCi][9][kCo];
-  __shared__ const float* chan[Tl::kCi];
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 4 : 0));
+}
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * kTx + tx;
-  const int b = blockIdx.z / n_groups;
-  const int co0 = (blockIdx.z % n_groups) * kCo;
-  const int ox0 = blockIdx.x * Tl::kOw, oy0 = blockIdx.y * Tl::kOh;
-  const int ix0 = ox0 * S - 1, iy0 = oy0 * S - 1;
-  const size_t plane = static_cast<size_t>(h) * w;
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
 
-  float acc[Tl::kPy][kCo];
-#pragma unroll
-  for (int p = 0; p < Tl::kPy; ++p)
-#pragma unroll
-    for (int c = 0; c < kCo; ++c) acc[p][c] = 0.0f;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  for (int ci0 = 0; ci0 < cin; ci0 += Tl::kCi) {
-    if (tid < Tl::kCi)
-      chan[tid] = ci0 + tid < cin ? channel_plane<float>(parts, b, ci0 + tid, plane) : nullptr;
-    __syncthreads();
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
 
-    // input tile with halo, zero outside the frame and past cin
-    constexpr int kTileN = Tl::kCi * Tl::kIh * Tl::kIw;
-    for (int i = tid; i < kTileN; i += kTx * kTy) {
-      const int ci = i / (Tl::kIh * Tl::kIw);
-      const int r = (i / Tl::kIw) % Tl::kIh;
-      const int c = i % Tl::kIw;
-      const int gy = iy0 + r, gx = ix0 + c;
-      const float* src = chan[ci];
-      float v = 0.0f;
-      if (src != nullptr && gy >= 0 && gy < h && gx >= 0 && gx < w)
-        v = __ldg(src + static_cast<size_t>(gy) * w + gx);
-      xs[ci][r][c] = v;
-    }
-    // the stage's weights as [ci][tap][co], zero past cin / cout
-    constexpr int kWN = Tl::kCi * 9 * kCo;
-    for (int i = tid; i < kWN; i += kTx * kTy) {
-      const int co = i % kCo;
-      const int tap = (i / kCo) % 9;
-      const int ci = i / (kCo * 9);
-      const int gco = co0 + co, gci = ci0 + ci;
-      float v = 0.0f;
-      if (gco < cout && gci < cin)
-        v = __ldg(weight + (static_cast<size_t>(gco) * cin + gci) * 9 + tap);
-      ws[ci][tap][co] = v;
-    }
-    __syncthreads();
+using rife_f32::chunk_start;
+using rife_f32::stage_in_floats;
 
-#pragma unroll 1
-    for (int ci = 0; ci < Tl::kCi; ++ci) {
-      float win[Tl::kWin][3];
-#pragma unroll
-      for (int r = 0; r < Tl::kWin; ++r)
-#pragma unroll
-        for (int k = 0; k < 3; ++k) win[r][k] = xs[ci][ty * Tl::kPy * S + r][tx * S + k];
-#pragma unroll
-      for (int tap = 0; tap < 9; ++tap) {
-        const int ky = tap / 3, kx = tap % 3;
-        float wr[kCo];
-        const float4* wv = reinterpret_cast<const float4*>(&ws[ci][tap][0]);
-#pragma unroll
-        for (int q = 0; q < kCo / 4; ++q) {
-          const float4 t = wv[q];
-          wr[4 * q] = t.x;
-          wr[4 * q + 1] = t.y;
-          wr[4 * q + 2] = t.z;
-          wr[4 * q + 3] = t.w;
-        }
-#pragma unroll
-        for (int p = 0; p < Tl::kPy; ++p) {
-          const float v = win[p * S + ky][kx];
-#pragma unroll
-          for (int c = 0; c < kCo; ++c) acc[p][c] = fmaf(v, wr[c], acc[p][c]);
-        }
+// plane of channel c of batch item b in the parts, by selects (indexing the
+// parts' arrays with a run-time value would put them in local memory)
+__device__ __forceinline__ const float* f32_plane(const Parts& parts, int b, int c,
+                                                  size_t plane) {
+  const void* p = parts.ptr[0];
+  int n = parts.ch[0];
+  if (c >= n) {
+    c -= n;
+    p = parts.ptr[1];
+    n = parts.ch[1];
+    if (c >= n) {
+      c -= n;
+      p = parts.ptr[2];
+      n = parts.ch[2];
+      if (c >= n) {
+        c -= n;
+        p = parts.ptr[3];
+        n = parts.ch[3];
       }
     }
-    __syncthreads();
   }
+  return static_cast<const float*>(p) + (static_cast<size_t>(b) * n + c) * plane;
+}
 
-  const int ox = ox0 + tx;
-  if (ox >= wo) return;
-#pragma unroll
-  for (int p = 0; p < Tl::kPy; ++p) {
-    const int oy = oy0 + ty * Tl::kPy + p;
-    if (oy >= ho) continue;
-#pragma unroll
-    for (int c = 0; c < kCo; ++c) {
-      const int co = co0 + c;
-      if (co >= cout) continue;
-      out[((static_cast<size_t>(b) * cout + co) * ho + oy) * wo + ox] =
-          epilogue(acc[p][c], co, bias, act, alpha, slope);
+// Copies of input channels c0 .. c0 + kc - 1 of batch item b, rows iy0 ..
+// iy0 + kIh - 1 and columns x0 .. x0 + kIw - 1, zero outside the frame,
+// into xs [ci][row][col]: 16-byte copies (each wholly inside or outside the
+// frame: W and x0 are multiples of 4) or, a.vec 0, 4-byte ones.
+template <int S, int WC, bool DECONV>
+__device__ __forceinline__ void stage_input(const F32Args a, int c0, int kc, int b, int iy0,
+                                            int x0, float* xs) {
+  using Tl = rife_f32::Tile<S, WC, DECONV>;
+  const size_t plane = static_cast<size_t>(a.h) * a.w;
+  if (a.vec) {
+    for (int i = threadIdx.x; i < kc * Tl::kIh * Tl::kVecs; i += kF32Threads) {
+      const int row = i / Tl::kVecs, v = i - row * Tl::kVecs;
+      const int ci = row / Tl::kIh, gy = iy0 + row - ci * Tl::kIh, gx = x0 + 4 * v;
+      const bool ok = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
+      const float* src = f32_plane(a.parts, b, c0 + ci, plane);
+      cp_async16(xs + row * Tl::kIw + 4 * v, ok ? src + static_cast<size_t>(gy) * a.w + gx : src,
+                 ok);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kc * Tl::kIh * Tl::kIw; i += kF32Threads) {
+      const int row = i / Tl::kIw, c = i - row * Tl::kIw;
+      const int ci = row / Tl::kIh, gy = iy0 + row - ci * Tl::kIh, gx = x0 + c;
+      const bool ok = gy >= 0 && gy < a.h && gx >= 0 && gx < a.w;
+      const float* src = f32_plane(a.parts, b, c0 + ci, plane);
+      cp_async4(xs + i, ok ? src + static_cast<size_t>(gy) * a.w + gx : src, ok);
     }
   }
 }
 
-template <int S>
-cudaError_t launch_f32(const Parts& parts, const float* weight, const float* bias,
-                       const float* slope, float* out, int batch, int cin, int h, int w,
-                       int cout, int act, float alpha, cudaStream_t s) {
-  using Tl = Tile<S>;
-  const int ho = (h - 1) / S + 1, wo = (w - 1) / S + 1;
-  const int groups = (cout + kCo - 1) / kCo;
-  const long long z = static_cast<long long>(batch) * groups;
-  if (z > 65535) return cudaErrorInvalidConfiguration;
-  dim3 grid((wo + Tl::kOw - 1) / Tl::kOw, (ho + Tl::kOh - 1) / Tl::kOh,
-            static_cast<unsigned>(z));
-  dim3 block(kTx, kTy);
-  conv3x3_kernel<S><<<grid, block, 0, s>>>(parts, weight, bias, slope, out, cin, h, w, cout,
-                                           ho, wo, act, alpha, groups);
-  return cudaGetLastError();
+// Copies of the weights of input channels c0 .. c0 + kc - 1 for channel
+// group g into ws [ci][row][t], zero past cout: a thread copies the run of
+// input channels of one (row, t), t the tile's channel; deconv: t = warp
+// group x 16 + phase x 4 + j, channel g x 4 WC + 4 x warp group + j, rows
+// the phase's four taps (pack_weight_t4)
+template <int S, int WC, bool DECONV>
+__device__ __forceinline__ void stage_weights(const F32Args a, int g, int c0, int kc,
+                                              float* ws) {
+  using Tl = rife_f32::Tile<S, WC, DECONV>;
+  for (int q = threadIdx.x; q < Tl::kTaps * Tl::kCt; q += kF32Threads) {
+    const int t = q % Tl::kCt, row = q / Tl::kCt;
+    int ch, src_row;
+    if (DECONV) {
+      ch = g * 4 * WC + 4 * (t / kGroupCh) + t % 4;
+      src_row = (t % kGroupCh) / 4 * 4 + row;
+    } else {
+      ch = g * Tl::kCt + t;
+      src_row = row;
+    }
+    const bool ok = ch < a.cout;
+    const float* src =
+        a.weight + (static_cast<size_t>(src_row) * a.cout + (ok ? ch : 0)) * a.cp + c0;
+    float* dst = ws + row * Tl::kCt + t;
+    for (int ci = 0; ci < kc; ++ci) cp_async4(dst + ci * Tl::kTaps * Tl::kCt, src + ci, ok);
+  }
+}
+
+// tile t of this block's channel group
+template <int S, int WC, bool DECONV>
+__device__ __forceinline__ rife_f32::TileAt tile_at(const F32Args a, int t) {
+  return rife_f32::tile_at(t, a.tiles_x, a.tiles_y, rife_f32::Tile<S, WC, DECONV>::kRows);
+}
+
+// The copies of stage number it of this block (its tile blockIdx.x + it /
+// n_chunks x gridDim.x of the group, chunk it % n_chunks) into xs: the
+// input and, unless the weights are resident, the chunk's weights after it
+template <int S, int WC, bool DECONV>
+__device__ __forceinline__ void stage_at(const F32Args a, int it, int g, int in_floats,
+                                         float* xs) {
+  const int k = it % a.n_chunks;
+  const rife_f32::TileAt at = tile_at<S, WC, DECONV>(a, blockIdx.x + (it / a.n_chunks) * gridDim.x);
+  const int c0 = chunk_start(k, a.cin, a.n_chunks);
+  const int kc = chunk_start(k + 1, a.cin, a.n_chunks) - c0;
+  stage_input<S, WC, DECONV>(a, c0, kc, at.b, at.oy0 * S - 1, at.ox0 * S - 4, xs);
+  if (!a.resident) stage_weights<S, WC, DECONV>(a, g, c0, kc, xs + in_floats);
+}
+
+// The f32 conv3x3 (and, DECONV, the 4x4 stride-2 transposed conv as four
+// output phases of a 3x3 window, each over its four non-zero taps).  Each
+// output's sum is one fmaf chain from +0 over the input channels ascending
+// and, within one, the taps (ky, kx) ascending: the order of the kernel it
+// replaced, so the result is bit for bit that kernel's (a phase's zero taps
+// and the zero halo add +-0, which leaves a sum that starts at +0 as it
+// is).  Blocks are persistent over the tiles of their channel group
+// (blockIdx.y); (tile, chunk) stages stream through a ring of two cp.async
+// buffers, the next landing while this one's FMAs run, across tiles; the
+// group's weights stay resident where they fit (a.resident), else each
+// stage carries its chunk's.
+template <int S, int WC, bool DECONV>
+__global__ void __launch_bounds__(kF32Threads, 2)
+conv3x3_f32_kernel(F32Args a) {
+  using Tl = rife_f32::Tile<S, WC, DECONV>;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const wres = reinterpret_cast<float*>(smem);
+  float* const ring = wres + (a.resident ? a.cin * Tl::kTaps * Tl::kCt : 0);
+  const int in_floats = stage_in_floats(a.kc, Tl::kIn);
+  const int stage_floats = in_floats + (a.resident ? 0 : a.kc * Tl::kTaps * Tl::kCt);
+
+  constexpr int R = Tl::R;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wc = warp / Tl::kWr;  // the warp's tile channels: wc * kCw ..
+  const int row0 = rife_f32::warp_row0(warp, Tl::kWr, R);  // its first row of the tile
+  const int g = blockIdx.y;
+  const int my_tiles = rife_f32::block_tiles(a.n_tiles, blockIdx.x, gridDim.x);
+  const int total = my_tiles * a.n_chunks;
+
+  if (a.resident) stage_weights<S, WC, DECONV>(a, g, 0, a.cin, wres);
+  stage_at<S, WC, DECONV>(a, 0, g, in_floats, ring);
+  cp_async_commit();
+
+  float acc[R][Tl::kCw];
+#pragma unroll
+  for (int p = 0; p < R; ++p)
+#pragma unroll
+    for (int c = 0; c < Tl::kCw; ++c) acc[p][c] = 0.0f;
+
+#pragma unroll 1
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait_all();
+    __syncthreads();  // stage it landed; every warp is done with stage it - 1
+    if (it + 1 < total)
+      stage_at<S, WC, DECONV>(a, it + 1, g, in_floats, ring + ((it + 1) & 1) * stage_floats);
+    cp_async_commit();
+
+    const int k = it % a.n_chunks;
+    const int c0 = chunk_start(k, a.cin, a.n_chunks);
+    const int kc = chunk_start(k + 1, a.cin, a.n_chunks) - c0;
+    const float* xs = ring + (it & 1) * stage_floats;
+    const float* ws =
+        (a.resident ? wres + c0 * Tl::kTaps * Tl::kCt : xs + in_floats) + wc * Tl::kCw;
+#pragma unroll 1
+    for (int ci = 0; ci < kc; ++ci) {
+      const float* xr = xs + ci * Tl::kIn + row0 * S * Tl::kIw + lane * S + Tl::kX;
+      float win[Tl::kWin][3];
+#pragma unroll
+      for (int r = 0; r < Tl::kWin; ++r)
+#pragma unroll
+        for (int kx = 0; kx < 3; ++kx) win[r][kx] = xr[r * Tl::kIw + kx];
+      const float* wt = ws + ci * Tl::kTaps * Tl::kCt;
+      if (DECONV) {
+        // phase by phase, its four taps (ry, rx) in (ky, kx) order; the
+        // next step's four weights load while this step's FMAs run
+        float4 wv[2];
+        wv[0] = *reinterpret_cast<const float4*>(wt);
+#pragma unroll
+        for (int step = 0; step < 16; ++step) {
+          const int ph = step / 4, k4 = step % 4;
+          if (step < 15)
+            wv[(step + 1) & 1] = *reinterpret_cast<const float4*>(
+                wt + ((step + 1) % 4) * Tl::kCt + 4 * ((step + 1) / 4));
+          const float4 w4 = wv[step & 1];
+          const int ky = (ph >> 1) + (k4 >> 1), kx = (ph & 1) + (k4 & 1);
+#pragma unroll
+          for (int p = 0; p < R; ++p) {
+            const float v = win[p + ky][kx];
+            acc[p][4 * ph] = fmaf(v, w4.x, acc[p][4 * ph]);
+            acc[p][4 * ph + 1] = fmaf(v, w4.y, acc[p][4 * ph + 1]);
+            acc[p][4 * ph + 2] = fmaf(v, w4.z, acc[p][4 * ph + 2]);
+            acc[p][4 * ph + 3] = fmaf(v, w4.w, acc[p][4 * ph + 3]);
+          }
+        }
+      } else {
+        // the next tap's weights load while this tap's FMAs run
+        float wv[2][Tl::kCw];
+#pragma unroll
+        for (int q = 0; q < Tl::kCw / 4; ++q) {
+          const float4 t4 = *reinterpret_cast<const float4*>(wt + 4 * q);
+          wv[0][4 * q] = t4.x;
+          wv[0][4 * q + 1] = t4.y;
+          wv[0][4 * q + 2] = t4.z;
+          wv[0][4 * q + 3] = t4.w;
+        }
+#pragma unroll
+        for (int tap = 0; tap < 9; ++tap) {
+          if (tap < 8) {
+#pragma unroll
+            for (int q = 0; q < Tl::kCw / 4; ++q) {
+              const float4 t4 =
+                  *reinterpret_cast<const float4*>(wt + (tap + 1) * Tl::kCt + 4 * q);
+              wv[(tap + 1) & 1][4 * q] = t4.x;
+              wv[(tap + 1) & 1][4 * q + 1] = t4.y;
+              wv[(tap + 1) & 1][4 * q + 2] = t4.z;
+              wv[(tap + 1) & 1][4 * q + 3] = t4.w;
+            }
+          }
+          const int ky = tap / 3, kx = tap % 3;
+#pragma unroll
+          for (int p = 0; p < R; ++p) {
+            const float v = win[p * S + ky][kx];
+#pragma unroll
+            for (int c = 0; c < Tl::kCw; ++c) acc[p][c] = fmaf(v, wv[tap & 1][c], acc[p][c]);
+          }
+        }
+      }
+    }
+    if (k != a.n_chunks - 1) continue;
+
+    // the tile's epilogue: the f32 bias and the activation, one rounding
+    // (each channel's bias and negative-side factor in registers: the
+    // stores may alias them); the sums restart
+    const rife_f32::TileAt at = tile_at<S, WC, DECONV>(a, blockIdx.x + (it / a.n_chunks) * gridDim.x);
+    const int ox = at.ox0 + lane;
+    const int o0 = g * Tl::kGroupOut + rife_f32::warp_ch0(warp, Tl::kWr, Tl::kOutCh);
+    float eb[Tl::kCw], ek[Tl::kCw];
+#pragma unroll
+    for (int c = 0; c < Tl::kCw; ++c) {
+      // channel c of this thread: deconv phase c / 4 of channel o0 + c % 4
+      const int ch = DECONV ? o0 + c % 4 : o0 + c;
+      const int at_ch = DECONV ? (c / 4) * a.cout + ch : ch;  // bias and slope index
+      const bool ok = ch < a.cout;
+      eb[c] = ok && a.bias != nullptr ? a.bias[at_ch] : 0.0f;
+      ek[c] = !ok ? 0.0f : a.act == kPrelu ? a.slope[at_ch] : a.alpha;
+    }
+#pragma unroll
+    for (int p = 0; p < R; ++p) {
+      const int oy = at.oy0 + row0 + p;
+      const bool in = ox < a.wo && oy < a.ho;
+#pragma unroll
+      for (int c = 0; c < Tl::kCw; ++c)
+        acc[p][c] = finish(acc[p][c], a.bias != nullptr, eb[c], a.act, ek[c]);
+      if (DECONV) {
+        // phases (py, 0) and (py, 1) of channel o: two neighbours of output
+        // row 2 oy + py, one 8-byte store
+#pragma unroll
+        for (int py = 0; py < 2; ++py)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int o = o0 + j;
+            if (in && o < a.cout)
+              *reinterpret_cast<float2*>(
+                  a.out +
+                  ((static_cast<size_t>(at.b) * a.cout + o) * 2 * a.ho + 2 * oy + py) * 2 * a.wo +
+                  2 * ox) = make_float2(acc[p][8 * py + j], acc[p][8 * py + 4 + j]);
+          }
+      } else {
+#pragma unroll
+        for (int c = 0; c < Tl::kCw; ++c)
+          if (in && o0 + c < a.cout)
+            a.out[((static_cast<size_t>(at.b) * a.cout + o0 + c) * a.ho + oy) * a.wo + ox] =
+                acc[p][c];
+      }
+#pragma unroll
+      for (int c = 0; c < Tl::kCw; ++c) acc[p][c] = 0.0f;
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -601,29 +800,107 @@ cudaError_t dispatch_tc(const TcArgs& a, int batch, int n_groups, const DeviceIn
   }
 }
 
+// raises conv3x3_f32_kernel<...>'s dynamic shared memory limit to the
+// device's opt-in, once per device
+template <int S, int WC, bool DECONV>
+cudaError_t allow_smem_f32(const DeviceInfo& dev) {
+  static bool done[kMaxDevices] = {};
+  std::lock_guard<std::mutex> hold(g_devices_lock);
+  if (done[dev.id]) return cudaSuccess;
+  cudaError_t rc = cudaFuncSetAttribute(conv3x3_f32_kernel<S, WC, DECONV>,
+                                        cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                        dev.smem_optin);
+  // all of the SM's unified memory as shared memory, so two blocks fit
+  if (rc == cudaSuccess)
+    rc = cudaFuncSetAttribute(conv3x3_f32_kernel<S, WC, DECONV>,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              cudaSharedmemCarveoutMaxShared);
+  if (rc == cudaSuccess) done[dev.id] = true;
+  return rc;
+}
+
+// one launch of plan p (rife_f32::plan): as many persistent blocks a
+// channel group as fit on the SMs, the group's tiles shared among them
+template <int S, int WC, bool DECONV>
+cudaError_t launch_f32(F32Args a, const rife_f32::Plan& p, const DeviceInfo& dev,
+                       cudaStream_t s) {
+  if (p.smem > dev.smem_optin) return cudaErrorInvalidConfiguration;
+  a.kc = p.kc;
+  a.n_chunks = p.n_chunks;
+  a.resident = p.resident;
+  a.tiles_x = p.tiles_x;
+  a.tiles_y = p.tiles_y;
+  a.n_tiles = p.n_tiles;
+  cudaError_t rc = allow_smem_f32<S, WC, DECONV>(dev);
+  if (rc != cudaSuccess) return rc;
+  int per_sm = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, conv3x3_f32_kernel<S, WC, DECONV>,
+                                                     kF32Threads, p.smem);
+  if (rc != cudaSuccess) return rc;
+  if (per_sm == 0) return cudaErrorInvalidConfiguration;
+  const int blocks = max(1, per_sm * dev.sms / p.groups);
+  dim3 grid(static_cast<unsigned>(min(p.n_tiles, blocks)), static_cast<unsigned>(p.groups));
+  conv3x3_f32_kernel<S, WC, DECONV><<<grid, kF32Threads, p.smem, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <int S, bool DECONV>
+cudaError_t dispatch_f32(const F32Args& a, const rife_f32::Plan& p, const DeviceInfo& dev,
+                         cudaStream_t s) {
+  if (p.wc == 1) return launch_f32<S, 1, DECONV>(a, p, dev, s);
+  if (p.wc == 2) return launch_f32<S, 2, DECONV>(a, p, dev, s);
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 // C interface, f32.  Parts x0..x3: contiguous NCHW (B,c_i,H,W) float32,
-// unused parts null with c_i = 0; weight (cout, sum c_i, 3, 3) float32; bias
-// and slope float32 (cout,) or null; out (B, cout, Ho, Wo), Ho = (H-1)/stride
-// + 1.  Returns cudaGetLastError() right after the launch.
+// unused parts null with c_i = 0; weight float32, cp = cin rounded up to 16,
+// zero past cin: conv (9, cout, cp) (pack_weight_tc), deconv (16, cout, cp)
+// (pack_weight_t4, cout = O); bias and slope float32 (cout,), deconv (4
+// cout,) tiled by phase, or null; out (B, cout, Ho, Wo), Ho = (H-1)/stride
+// + 1, deconv (B, cout, 2H, 2W) at stride 1.  The launch's tiles, channel
+// groups, stages and resident weights: rife_f32::plan (conv_f32_plan.h).
+// Returns cudaGetLastError() right after the launch, or the reason the
+// launch was refused.
 extern "C" int rife_conv3x3(const void* x0, const void* x1, const void* x2, const void* x3,
-                            int c0, int c1, int c2, int c3, const void* weight,
+                            int c0, int c1, int c2, int c3, const void* weight, int cp,
                             const void* bias, const void* slope, void* out, int batch, int h,
-                            int w, int cout, int stride, int act, float alpha, void* stream) {
+                            int w, int cout, int stride, int act, float alpha, int deconv,
+                            void* stream) {
   const Parts parts = {{x0, x1, x2, x3}, {c0, c1, c2, c3}};
   const int cin = c0 + c1 + c2 + c3;
-  if (cin <= 0 || cout <= 0 || (stride != 1 && stride != 2) || act < kNone ||
-      act > kPrelu || (act == kPrelu && slope == nullptr))
+  rife_f32::Plan p;
+  if (cp < cin || act < kNone || act > kPrelu || (act == kPrelu && slope == nullptr) ||
+      !rife_f32::plan(batch, cin, cout, h, w, stride, deconv != 0, &p))
     return static_cast<int>(cudaErrorInvalidValue);
-  const float* wt = static_cast<const float*>(weight);
-  const float* b = static_cast<const float*>(bias);
-  const float* sl = static_cast<const float*>(slope);
-  float* o = static_cast<float*>(out);
+  DeviceInfo dev;
+  const cudaError_t dev_rc = current_device_info(&dev);
+  if (dev_rc != cudaSuccess) return static_cast<int>(dev_rc);
+  F32Args a{};
+  a.parts = parts;
+  a.weight = static_cast<const float*>(weight);
+  a.bias = static_cast<const float*>(bias);
+  a.slope = static_cast<const float*>(slope);
+  a.out = static_cast<float*>(out);
+  a.cin = cin;
+  a.cp = cp;
+  a.h = h;
+  a.w = w;
+  a.cout = cout;
+  a.ho = (h - 1) / stride + 1;
+  a.wo = (w - 1) / stride + 1;
+  a.act = act;
+  a.alpha = alpha;
+  bool aligned = (w & 3) == 0;
+  for (int k = 0; k < kMaxParts; ++k)
+    aligned = aligned && (reinterpret_cast<uintptr_t>(parts.ptr[k]) & 15) == 0;
+  a.vec = aligned ? 1 : 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t rc =
-      stride == 1 ? launch_f32<1>(parts, wt, b, sl, o, batch, cin, h, w, cout, act, alpha, s)
-                  : launch_f32<2>(parts, wt, b, sl, o, batch, cin, h, w, cout, act, alpha, s);
+      deconv ? dispatch_f32<1, true>(a, p, dev, s)
+             : (stride == 1 ? dispatch_f32<1, false>(a, p, dev, s)
+                            : dispatch_f32<2, false>(a, p, dev, s));
   return static_cast<int>(rc);
 }
 

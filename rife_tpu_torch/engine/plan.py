@@ -306,10 +306,17 @@ def conv_sites(session, h: int, w: int,
     channels, a PixelShuffle site the channels before the shuffle; a
     ``deconv4x4`` site is (batch factor, (cin,), O, PixelShuffle factor,
     activation code, H, W, XLA order)."""
+    return [site for site, _ in conv_site_counts(session, h, w, kernel)]
+
+
+def conv_site_counts(session, h: int, w: int,
+                     kernel: str = "conv3x3") -> List[Tuple[tuple, int]]:
+    """``conv_sites`` with each distinct call's launches in the step:
+    [(site, launches), ...] in the order the step first calls them."""
     plan = _plan(session, h, w)
-    seen = []
+    counts: Dict[tuple, int] = {}
     names = ("conv3x3", "conv3x3_ps", "deconv4x4")
     for factor, site in plan[1 + names.index(kernel)]:
-        if (factor, *site) not in seen:
-            seen.append((factor, *site))
-    return seen
+        key = (factor, *site)
+        counts[key] = counts.get(key, 0) + 1
+    return list(counts.items())

@@ -96,7 +96,8 @@ def _stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(s.stat().st_mtime > built for s in _sources())
+    return any(s.stat().st_mtime > built
+               for s in [*_sources(), *SRC_DIR.glob("*.h")])
 
 
 def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -121,10 +122,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     # u8, ds4, bf16, channel group, stream
     lib.rife_warp_spatial.argtypes = [vp] * 3 + [i] * 10 + [vp]
     lib.rife_warp_spatial.restype = i
-    # f32: 4 part pointers, 4 channel counts, weight, bias, slope, out;
-    # batch, H, W, Cout, stride, activation, alpha, stream
-    lib.rife_conv3x3.argtypes = ([vp] * 4 + [i] * 4 + [vp] * 4 + [i] * 6
-                                 + [ctypes.c_float, vp])
+    # f32: 4 part pointers, 4 channel counts, packed weight, its padded
+    # Cin, bias, slope, out; batch, H, W, Cout, stride, activation, alpha,
+    # deconv flag, stream
+    lib.rife_conv3x3.argtypes = ([vp] * 4 + [i] * 4 + [vp, i] + [vp] * 3
+                                 + [i] * 6 + [ctypes.c_float, i, vp])
     lib.rife_conv3x3.restype = i
     # bf16: 4 part pointers, 4 channel counts, packed weight, its padded
     # Cin, bias, slope, out; batch, H, W, Cout, stride, activation, alpha,

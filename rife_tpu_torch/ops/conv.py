@@ -10,21 +10,24 @@ ReLU, leaky(alpha) or per-channel PReLU) in f32, and ONE rounding to the
 storage dtype (``conv_planar.py:56-63,93-94``).  It replaces
 ``_conv_planar_s1_direct`` (K11) and ``_conv_planar_s2_direct_cat`` (K12);
 ``conv_planar_bhcw`` (K9) and ``conv_s2_bhcw`` (K10) compute the same
-functions and are covered by it.  In bf16 it runs on the tensor cores over
-weights packed once per model (``pack_weight_tc``: (9, Cout, Cin padded to
-16)); in f32 on the CUDA cores over the OIHW weights.  Its PixelShuffle(2)
-form (B4's conv form, ``conv_ps_planar``: ``conv3x3(..., ps=2)``) runs in
-bf16 on a kernel of its own (``rife_tpu_torch/csrc/conv_ps.cu``, over the
-same packed weights and the tile geometry of ``ps_geometry``), which writes
-the shuffled output; in f32 the CUDA-core kernel, then ``F.pixel_shuffle``.
-``deconv4x4`` runs
-the 4x4 stride-2 transposed conv of the planar deconv sites: in bf16 on the
-card the deconv kernel (``rife_tpu_torch/csrc/deconv.cu``: four taps per
-output phase, over weights packed once per model by ``pack_weight_t4``),
-which writes the interleaved (and shuffled) output itself; in f32, and in
-its twin, as ``conv_planar.deconv_planar`` does it: one stride-1 conv
-producing the four output phases on its output channels
-(``deconv_phase_weights``), then a plain reshape/permute
+functions and are covered by it.  Both dtypes read weights packed once per
+model (``pack_weight_tc``: (9, Cout, Cin padded to 16)): bf16 on the tensor
+cores, f32 on the FP32 pipes (``conv3x3_f32_kernel``, which plans its own
+launch: ``csrc/conv_f32_plan.h``; each output's sum in the order of the
+kernel it replaced, so bit for bit with it).  Its PixelShuffle(2) form
+(B4's conv form, ``conv_ps_planar``: ``conv3x3(..., ps=2)``) runs in bf16
+on a kernel of its own (``rife_tpu_torch/csrc/conv_ps.cu``, over the same
+packed weights and the tile geometry of ``ps_geometry``), which writes the
+shuffled output; in f32 the f32 kernel, then ``F.pixel_shuffle``.  ``deconv4x4`` runs the 4x4
+stride-2 transposed conv of the planar deconv sites: in bf16 on the card
+the deconv kernel (``rife_tpu_torch/csrc/deconv.cu``: four taps per output
+phase, over weights packed once per model by ``pack_weight_t4``), which
+writes the interleaved (and shuffled) output itself; in f32 on the card the
+f32 kernel's deconv mode over the same ``pack_weight_t4`` weights (four
+taps per phase, the interleaved output written by the kernel; with ``ps``
+2 then ``F.pixel_shuffle``); in its twin as ``conv_planar.deconv_planar``
+does it: one stride-1 conv producing the four output phases on its output
+channels (``deconv_phase_weights``), then a plain reshape/permute
 (``interleave_phases``).  ``deconv4x4_xla`` runs the same kernel at every
 other bf16 4x4 stride-2 pad-1 deconv site on the card (v4.6's
 ``rife.DeconvPS``, the planar nets' deconvs under the gates) in XLA's
@@ -146,8 +149,8 @@ def is_deconv4x4(node) -> bool:
 def deconv_on_kernel(device, dtype) -> bool:
     """Whether the 4x4 stride-2 deconv sites of a run on ``device`` in
     ``dtype`` take the deconv kernel: bf16 on the card.  f32 runs keep the
-    routes that meet the f32 bar (the planar sites ``conv3x3``'s CUDA-core
-    form, the others cuDNN with TF32 off), and the CPU its twins."""
+    routes that meet the f32 bar (the planar sites the f32 conv kernel's
+    deconv mode, the others cuDNN with TF32 off), and the CPU its twins."""
     return torch.device(device).type == "cuda" and dtype == torch.bfloat16
 
 
@@ -369,7 +372,10 @@ def conv3x3_packed_ref(parts, weight_tc, bias=None, slope=None, *, stride=1,
 # CUDA wrapper
 # ---------------------------------------------------------------------------
 
-def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
+def _check(parts, weight, bias, slope, stride, act, weight_tc=None,
+           packed=True):
+    """Validate a launch's operands (``packed``: it reads ``weight_tc``);
+    returns (B, H, W, Cout)."""
     ref = parts[0]
     if ref.device.type != "cuda":
         raise ValueError(f"conv3x3 takes CUDA or CPU tensors, got {ref.device}")
@@ -398,8 +404,8 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
         raise ValueError(f"weight must be contiguous ({cout}, {cin}, 3, 3) "
                          f"{ref.dtype} on {ref.device}, got "
                          f"{tuple(weight.shape)} {weight.dtype}")
-    if ref.dtype == torch.bfloat16 and weight_tc is None:
-        raise ValueError("a bf16 launch takes weight_tc (pack_weight_tc)")
+    if packed and weight_tc is None:
+        raise ValueError("a launch takes weight_tc (pack_weight_tc)")
     if weight_tc is not None and (
             tuple(weight_tc.shape) != (9, cout, padded_cin(cin))
             or weight_tc.dtype != ref.dtype or weight_tc.device != ref.device
@@ -423,24 +429,22 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None):
 
 def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
             ps=1):
-    """One launch that writes the plain result: the tensor-core kernel for
-    bf16 (over ``weight_tc``, the packed weights), the CUDA-core kernel for
-    f32.  It counts as ``conv3x3_ps`` when ``ps`` > 1 (the caller shuffles),
-    else as ``conv3x3``."""
+    """One launch over ``weight_tc`` (the packed weights) that writes the
+    plain result: the tensor-core kernel for bf16, the f32 kernel for
+    f32.  It counts as ``conv3x3_ps`` when ``ps`` > 1 (the caller
+    shuffles), else as ``conv3x3``."""
     b, h, w = parts[0].shape[0], parts[0].shape[2], parts[0].shape[3]
     cout = weight.shape[0]
     padded = parts + [None] * (MAX_PARTS - len(parts))
     chans = [0 if t is None else t.shape[1] for t in padded]
     device = parts[0].device
+    common = (*map(L.ptr, padded), *chans, L.ptr(weight_tc),
+              weight_tc.shape[2], L.ptr(bias), L.ptr(slope), L.ptr(out), b, h,
+              w, cout, stride, act, ctypes.c_float(alpha))
     if parts[0].dtype == torch.bfloat16:
-        L.launch("rife_conv3x3_tc", device, *map(L.ptr, padded), *chans,
-                 L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias),
-                 L.ptr(slope), L.ptr(out), b, h, w, cout, stride, act,
-                 ctypes.c_float(alpha))
+        L.launch("rife_conv3x3_tc", device, *common)
     else:
-        L.launch("rife_conv3x3", device, *map(L.ptr, padded), *chans,
-                 L.ptr(weight), L.ptr(bias), L.ptr(slope), L.ptr(out), b, h,
-                 w, cout, stride, act, ctypes.c_float(alpha))
+        L.launch("rife_conv3x3", device, *common, 0)
     LAUNCHES["conv3x3_ps" if ps > 1 else "conv3x3"] += 1
 
 
@@ -564,7 +568,7 @@ def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
     PixelShuffle(ps), (B, Cout/ps^2, ps*Ho, ps*Wo): in bf16 one launch of
     B4's conv kernel (one part, ``ps`` 2, Cin and Cout <= 64; it writes each
     conv channel 4c + 2i + j of pixel (y, x) to (c, 2y + i, 2x + j)), in f32
-    the CUDA-core kernel, then ``F.pixel_shuffle``."""
+    the f32 kernel (it reads ``weight_tc`` too), then ``F.pixel_shuffle``."""
     parts = list(parts)
     if parts[0].device.type == "cpu":
         return conv3x3_ref(parts, weight, bias, slope, stride=stride, act=act,
@@ -642,10 +646,11 @@ def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
     the deconv's (O,) float32 values tiled 4x, as the phase conv takes
     them.  CUDA bf16: one launch of the deconv kernel over ``weight_t4``
     (``pack_weight_t4``; it reads the first O values of the bias and
-    slope).  Otherwise ``conv3x3`` over the phase weights
-    (``deconv_phase_weights``: the twin on the CPU, the CUDA-core kernel
-    for f32), then ``interleave_phases`` (and ``F.pixel_shuffle``): what
-    ``deconv4x4_ref`` computes."""
+    slope); CUDA f32: one launch of the f32 kernel's deconv mode over
+    ``weight_t4`` (``_launch_deconv_f32``).  The CPU: ``conv3x3``'s twin
+    over the phase weights (``deconv_phase_weights``), then
+    ``interleave_phases`` (and ``F.pixel_shuffle``): what ``deconv4x4_ref``
+    computes."""
     if x.device.type == "cpu":
         y = interleave_phases(conv3x3([x], phase_weight, phase_bias,
                                       phase_slope, stride=1, act=act,
@@ -654,17 +659,38 @@ def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
     if x.dtype == torch.bfloat16:
         return _launch_deconv(x, weight_t4, phase_bias, phase_slope, act,
                               alpha, ps, xla=False)
+    return _launch_deconv_f32(x, phase_weight, phase_bias, phase_slope, act,
+                              alpha, weight_t4, ps)
+
+
+def _launch_deconv_f32(x, phase_weight, phase_bias, phase_slope, act, alpha,
+                       weight_t4, ps):
+    """A planar deconv site in f32 on the card: one launch of the f32 kernel
+    in its deconv mode over ``weight_t4``, which writes the interleaved (B,
+    O, 2H, 2W) output; with ``ps`` = 2 then ``F.pixel_shuffle``.  Counts as
+    ``conv3x3`` (``conv3x3_ps`` with ``ps`` = 2), as the phase conv it
+    replaced did."""
     b, h, w, cout = _check([x], phase_weight, phase_bias, phase_slope, 1,
-                           act)
+                           act, packed=False)
     if cout % 4:
         raise ValueError(f"phase weights need 4*O output channels, got {cout}")
     if ps not in (1, 2):
         raise ValueError(f"deconv4x4 shuffles by 2 or not at all, got {ps}")
-    _check_ps(ps, cout // 4)
-    y4 = x.new_empty((b, cout, h, w))
-    _launch([x], phase_weight, phase_bias, phase_slope, y4, 1, act, alpha,
-            None, ps=ps)
-    y = interleave_phases(y4)
+    o, cin = cout // 4, x.shape[1]
+    _check_ps(ps, o)
+    if (weight_t4 is None or tuple(weight_t4.shape) != (16, o, padded_cin(cin))
+            or weight_t4.dtype != x.dtype or weight_t4.device != x.device
+            or not weight_t4.is_contiguous()):
+        got = None if weight_t4 is None else tuple(weight_t4.shape)
+        raise ValueError(f"weight_t4 must be contiguous (16, {o}, "
+                         f"{padded_cin(cin)}) {x.dtype} on {x.device} "
+                         f"(pack_weight_t4), got {got}")
+    y = x.new_empty((b, o, 2 * h, 2 * w))
+    L.launch("rife_conv3x3", x.device, L.ptr(x), *[L.ptr(None)] * 3, cin, 0,
+             0, 0, L.ptr(weight_t4), weight_t4.shape[2], L.ptr(phase_bias),
+             L.ptr(phase_slope), L.ptr(y), b, h, w, o, 1, act,
+             ctypes.c_float(alpha), 1)
+    LAUNCHES["conv3x3_ps" if ps > 1 else "conv3x3"] += 1
     return F.pixel_shuffle(y, ps) if ps > 1 else y
 
 

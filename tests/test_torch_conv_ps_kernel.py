@@ -430,10 +430,11 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(calls):
 
 
 def test_f32_keeps_the_cuda_core_kernel_and_the_shuffle(calls):
-    """An f32 shuffled conv: the CUDA-core kernel, then ``pixel_shuffle``,
-    counted as ``conv3x3_ps``."""
+    """An f32 shuffled conv: the f32 kernel on the CUDA cores (it reads the
+    packed weights too), then ``pixel_shuffle``, counted as
+    ``conv3x3_ps``."""
     x, weight = bf16_case()
-    out = launch(x.float(), weight.float(), weight_tc=None)
+    out = launch(x.float(), weight.float())
     assert [name for name, _ in calls] == ["rife_conv3x3"]
     assert out.shape == (2, 4, 24, 48)
     assert CV.LAUNCHES["conv3x3_ps"] == 1

@@ -606,6 +606,152 @@ def test_deconv_rows_do_not_depend_on_the_window_or_the_batch(cuda_device):
         assert torch.equal(run(x[2:4].contiguous()), whole[2:4])
 
 
+# every f32 conv3x3 site of a v2.3 and a v1 1080p step (plan.conv_sites of
+# f32 sessions; ps 2: v1's head), at B=2: (parts, cout, stride, act, H, W,
+# deconv (cout = 4 O), ps); and the -u step's widest site (its weights are
+# not resident)
+F32_SITES = [
+    ((3, 3, 4), 96, 2, 3, 544, 960, False, 1),                       # v2.3
+    ((192,), 16, 1, 0, 136, 240, True, 1),
+    ((3, 3, 4), 48, 2, 3, 1088, 1920, False, 1),
+    ((96,), 16, 1, 0, 272, 480, True, 1),
+    ((3,), 32, 2, 3, 1088, 1920, False, 1),
+    ((32,), 32, 1, 3, 544, 960, False, 1),
+    ((32,), 32, 2, 3, 544, 960, False, 1),
+    ((3, 3, 4), 32, 2, 3, 1088, 1920, False, 1),
+    ((32,), 64, 2, 3, 544, 960, False, 1),
+    ((32,), 16, 1, 0, 544, 960, True, 1),
+    ((3, 3, 2), 90, 2, 3, 544, 960, False, 1),                       # v1
+    ((3,), 16, 2, 0, 1088, 1920, False, 1),
+    ((16,), 16, 1, 0, 544, 960, False, 1),
+    ((16,), 32, 2, 3, 544, 960, False, 1),
+    ((8,), 32, 2, 3, 1088, 1920, False, 1),
+    ((32,), 32, 1, 0, 544, 960, False, 1),
+    ((128,), 64, 1, 3, 272, 480, True, 1),
+    ((16,), 16, 1, 0, 544, 960, False, 2),
+    ((64, 32, 32), 128, 2, 3, 544, 960, False, 1),                  # -u
+]
+
+
+def f32_site_inputs(seed, parts, cout, deconv, h, w, device, b=2):
+    """Seeded f32 inputs of a conv3x3 site: the parts, the weights (OIHW,
+    or a deconv's phase weights), what the kernel reads (``weight_tc`` or
+    ``weight_t4``), bias and slope (phase-tiled at a deconv site)."""
+    from rife_tpu_torch.ops import conv as CV
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(  # noqa: E731
+        device).contiguous()
+    cin = sum(parts)
+    xs = [t(rng.normal(size=(b, c, h, w))) for c in parts]
+    if deconv:
+        raw = t(rng.normal(size=(cin, cout // 4, 4, 4)) / (2 * cin ** 0.5))
+        bias = t(np.tile(rng.normal(size=cout // 4) * 0.3, 4))
+        slope = t(np.tile(rng.uniform(0, 0.5, cout // 4), 4))
+        return (xs, CV.deconv_phase_weights(raw).contiguous(),
+                CV.pack_weight_t4(raw), bias, slope)
+    weight = t(rng.normal(size=(cout, cin, 3, 3)) / (3 * cin ** 0.5))
+    return (xs, weight, CV.pack_weight_tc(weight), t(rng.normal(size=cout)),
+            t(rng.uniform(0, 0.5, cout)))
+
+
+def f32_call(CV, xs, weight, packed, bias, slope, stride, act, deconv, ps):
+    if deconv:
+        return CV.deconv4x4(xs[0], weight, bias, slope, act=act,
+                            weight_t4=packed, ps=ps)
+    return CV.conv3x3(xs, weight, bias, slope, stride=stride, act=act,
+                      weight_tc=packed, ps=ps)
+
+
+@pytest.mark.parametrize("site", F32_SITES)
+def test_f32_kernel_at_every_site(cuda_device, site):
+    """The f32 kernel at every f32 site, B=2: one launch (a deconv site in
+    the deconv mode, which writes the interleaved output), against its twin
+    at the f32 bar."""
+    from rife_tpu_torch.ops import conv as CV
+
+    parts, cout, stride, act, h, w, deconv, ps = site
+    xs, weight, packed, bias, slope = f32_site_inputs(
+        sum(parts) + cout + h, parts, cout, deconv, h, w, cuda_device)
+    CV.reset_launches()
+    got = f32_call(CV, xs, weight, packed, bias, slope, stride, act, deconv,
+                   ps)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in CV.LAUNCHES.items() if v} == {
+        "conv3x3_ps" if ps > 1 else "conv3x3": 1}
+    if deconv:
+        want = CV.deconv4x4_ref(xs[0], weight, bias, slope, act=act, ps=ps)
+    else:
+        want = CV.conv3x3_ref(xs, weight, bias, slope, stride=stride,
+                              act=act, ps=ps)
+    check(got, want, f32_rel=1e-5)
+
+
+@pytest.mark.parametrize("parts,cout,stride,act,h,w,deconv,ps", [
+    ((3, 3, 4), 16, 2, 3, 12, 20, False, 1),     # three parts, 16-byte rows
+    ((5,), 7, 1, 2, 9, 13, False, 1),            # odd Cin and width: 4-byte
+    ((17, 9), 20, 2, 1, 10, 26, False, 1),
+    ((32,), 32, 1, 3, 20, 36, False, 1),
+    ((32,), 64, 2, 3, 11, 24, False, 1),
+    ((3, 3, 2), 90, 2, 3, 8, 12, False, 1),
+    ((16,), 16, 1, 0, 10, 16, False, 2),         # v1's head
+    ((192,), 16, 1, 3, 6, 8, False, 1),          # the widest Cin
+    ((64, 32, 32), 128, 2, 3, 6, 8, False, 1),   # weights streamed by stage
+    ((32,), 16, 1, 0, 9, 13, True, 1),           # deconv, odd width
+    ((192,), 16, 1, 0, 5, 8, True, 1),
+    ((128,), 64, 1, 3, 6, 11, True, 1),
+    ((12,), 32, 1, 3, 7, 12, True, 2),           # deconv + PixelShuffle
+    ((5,), 12, 1, 2, 9, 13, True, 1),            # O = 3
+])
+def test_f32_kernel_bit_for_bit_with_the_earlier_order(
+        cuda_device, parts, cout, stride, act, h, w, deconv, ps):
+    """The f32 kernel bit for bit with the kernel it replaced, whose
+    algorithm ``torch_f32_order.conv3x3_serial`` repeats (one fmaf chain
+    from +0 an output, input channels ascending, taps ascending; a deconv
+    site the phase conv over all nine taps, interleaved), at mini sizes."""
+    from torch_f32_order import conv3x3_serial
+
+    from rife_tpu_torch.ops import conv as CV
+
+    F = torch.nn.functional
+    xs, weight, packed, bias, slope = f32_site_inputs(
+        3 * cout + w, parts, cout, deconv, h, w, cuda_device)
+    got = f32_call(CV, xs, weight, packed, bias, slope, stride, act, deconv,
+                   ps).cpu()
+    np_ = lambda t: t.cpu().numpy()  # noqa: E731
+    want = torch.from_numpy(conv3x3_serial(
+        [np_(x) for x in xs], np_(weight), np_(bias), np_(slope),
+        stride=1 if deconv else stride, act=act))
+    if deconv:
+        want = CV.interleave_phases(want)
+    if ps > 1:
+        want = F.pixel_shuffle(want, ps)
+    assert got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("parts", [(3, 3, 4), (3,), (32,), (192,), (5,),
+                                   (17, 9)])
+@pytest.mark.parametrize("cout,stride", [(32, 1), (48, 2), (7, 2), (96, 1)])
+def test_f32_kernel_writes_every_output(cuda_device, parts, cout, stride):
+    """One launch of the f32 kernel into an output filled with NaN, at the
+    part widths of the plan's CPU test: every output written (no NaN left)
+    and equal to the twin at the f32 bar."""
+    from rife_tpu_torch.ops import conv as CV
+
+    b, h, w = 2, 37, 70
+    xs, weight, packed, bias, slope = f32_site_inputs(
+        sum(parts) + cout, parts, cout, False, h, w, cuda_device, b)
+    out = torch.full((b, cout, (h - 1) // stride + 1, (w - 1) // stride + 1),
+                     float("nan"), device=cuda_device)
+    CV._launch(xs, weight, bias, slope, out, stride, CV.ACT_PRELU, 0.2,
+               packed)
+    torch.cuda.synchronize()
+    assert not out.isnan().any()
+    check(out, CV.conv3x3_ref(xs, weight, bias, slope, stride=stride,
+                              act=CV.ACT_PRELU), f32_rel=1e-5)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind,cin,cout,stride,h,w", [
     ("conv", 16, 16, 1, 272, 480),   # the v1 fusionnet head, B=2
@@ -740,18 +886,21 @@ def test_v1_f32_matches_cpu(cuda_device, tmp_path, monkeypatch):
 
 
 def test_failed_launch_raises(cuda_device):
-    """A launch the card refuses raises (f32: grid z over 65535; bf16: the
-    weights do not fit in shared memory); nothing runs a twin in its
-    place."""
+    """A launch the card refuses raises (f32: an empty batch; bf16: the
+    weights do not fit in shared memory), and one without its packed
+    weights is refused before it; nothing runs a twin in its place."""
     from rife_tpu_torch.ops import conv as CV
 
     x = torch.zeros(70000, 1, 2, 2, device=cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
         W.warp_feat(x, torch.zeros(70000, 2, 2, 2, device=cuda_device))
     CV.reset_launches()
+    w32 = torch.zeros(256, 1, 3, 3, device=cuda_device)
     with pytest.raises(RuntimeError, match="CUDA error"):
-        CV.conv3x3([torch.zeros(4100, 1, 2, 2, device=cuda_device)],
-                   torch.zeros(256, 1, 3, 3, device=cuda_device))
+        CV.conv3x3([torch.zeros(0, 1, 2, 2, device=cuda_device)], w32,
+                   weight_tc=CV.pack_weight_tc(w32))
+    with pytest.raises(ValueError, match="weight_tc"):
+        CV.conv3x3([torch.zeros(2, 1, 2, 2, device=cuda_device)], w32)
     assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
     bf = dict(device=cuda_device, dtype=torch.bfloat16)
     w = torch.zeros(64, 512, 3, 3, **bf)

@@ -114,8 +114,8 @@ def conv_calls(dtype):
     """(counter, C function, thunk) for conv3x3 (one and three parts) and
     deconv4x4, each also in its PixelShuffle form (B4, ``conv3x3_ps``), and
     in bf16 deconv4x4_xla: a bf16 deconv launches the deconv kernel, an f32
-    one the phase conv; a bf16 shuffled conv B4's conv kernel, an f32 one
-    the CUDA-core kernel."""
+    one the f32 conv kernel's deconv mode; a bf16 shuffled conv B4's conv
+    kernel, an f32 one the f32 conv kernel."""
     bf16 = dtype == torch.bfloat16
     c_fn = "rife_conv3x3_tc" if bf16 else "rife_conv3x3"
     d_fn = "rife_deconv4x4" if bf16 else c_fn

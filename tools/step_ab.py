@@ -14,6 +14,11 @@ as tools/warp_ab.py does) and times, in the order old, new, new, old (bf16):
   same inputs, bit for bit, and the sum over the sites;
 * the v1 fusionnet's head (B4's conv form, ``conv3x3(..., ps=2)``, 16 ->
   16 at 544x960, B=8), bit for bit;
+* the f32 kernel at every f32 site of the v2.3 and v1 1080p B=8 steps
+  (``plan.conv_site_counts`` of f32 sessions of the new checkout: the conv
+  sites, the deconv sites through ``deconv4x4`` and v1's head through
+  ``conv3x3(..., ps=2)``), both checkouts' wrapper on the same inputs, bit
+  for bit, and the sums over each step, each site times its launches;
 * ``warp_spatial`` at a quarter of the rows (u8 C=3 of 1088x1920 B=2,
   float C=32 of 544x960 B=2), bit for bit;
 * whole steps, host clock around synchronised steps after a warm-up, as
@@ -141,6 +146,68 @@ def conv_sites(pkgs, dirs, device, rec):
     torch.cuda.empty_cache()
 
 
+def f32_site_fns(cv, gen, device, site, ps, t):
+    """A checkout's f32 wrapper at one site, on inputs made once (``t``
+    holds them across checkouts)."""
+    factor, parts, cout, stride, act, h, w, deconv = site
+    b, cin = 8 * factor, sum(parts)
+    if not t:
+        def randn(*shape, scale=1.0):
+            return torch.randn(*shape, device=device, generator=gen) * scale
+        t["xs"] = [randn(b, c, h, w) for c in parts]
+        if deconv:
+            o = cout // 4
+            t["raw"] = randn(cin, o, 4, 4, scale=1 / (2 * cin ** 0.5))
+            t["bias"] = randn(o, scale=0.1).repeat(4)
+            t["slope"] = (randn(o).abs() * 0.3).repeat(4)
+        else:
+            t["weight"] = randn(cout, cin, 3, 3, scale=1 / (3 * cin ** 0.5))
+            t["bias"] = randn(cout, scale=0.1)
+            t["slope"] = randn(cout).abs() * 0.3
+    if deconv:
+        w3 = cv.deconv_phase_weights(t["raw"]).contiguous()
+        t4 = cv.pack_weight_t4(t["raw"])
+        return lambda: cv.deconv4x4(t["xs"][0], w3, t["bias"], t["slope"],
+                                    act=act, weight_t4=t4, ps=ps)
+    tc = cv.pack_weight_tc(t["weight"])
+    return lambda: cv.conv3x3(t["xs"], t["weight"], t["bias"], t["slope"],
+                              stride=stride, act=act, weight_tc=tc, ps=ps)
+
+
+def f32_sites(pkgs, dirs, device, rec):
+    gen = torch.Generator(device=device).manual_seed(4)
+    new = pkgs["new"]
+    for model in ("v2.3", "v1"):
+        sess = new.RIFE(str(dirs[model]), device=device, dtype=torch.float32)
+        sites = [(site, 2 if kind == "conv3x3_ps" else 1, n)
+                 for kind in ("conv3x3", "conv3x3_ps")
+                 for site, n in new.engine.plan.conv_site_counts(
+                     sess, 1080, 1920, kind)]
+        del sess
+        total = {"old": [0.0, 0.0], "new": [0.0, 0.0]}
+        for i, (site, ps, n) in enumerate(sites):
+            t = {}
+            fns = {side: f32_site_fns(pkg.ops.conv, gen, device, site, ps, t)
+                   for side, pkg in pkgs.items()}
+            require_equal(fns, f"f32 {model} site {i} {site}")
+            got = in_turns(fns)
+            rec[f"f32 {model} {i}"] = {
+                "site": [site[0], list(site[1]), *site[2:]], "ps": ps,
+                "launches_a_step": n, "ms": got}
+            for side in total:
+                total[side] = [a + n * m for a, m in zip(total[side],
+                                                         got[side])]
+            print(f"f32 {model} site {i} {site} ps {ps}, {n} a step: {got}, "
+                  f"bit for bit", flush=True)
+            del fns, t
+            torch.cuda.empty_cache()
+        launches = sum(n for _, _, n in sites)
+        rec[f"f32 {model} step sum"] = {"launches": launches, "ms": total}
+        print(f"f32 conv3x3 over a {model} 1080p B=8 step ({launches} "
+              f"launches at {len(sites)} sites; old, new in turns): {total}",
+              flush=True)
+
+
 def head_and_spatial(pkgs, device, rec):
     g = torch.Generator().manual_seed(1)
     x = torch.randn(8, 16, 544, 960, generator=g).to(device, torch.bfloat16)
@@ -254,6 +321,7 @@ def main() -> int:
     deconv_sites(pkgs, dirs, device, rec)
     conv_sites(pkgs, dirs, device, rec)
     head_and_spatial(pkgs, device, rec)
+    f32_sites(pkgs, dirs, device, rec)
     if not args.skip_steps:
         steps(pkgs, dirs, device, rec)
     del new
