@@ -21,10 +21,19 @@ Off by default, as there; the port reads no ``RIFE_TPU_*`` variable.
 ``resize2d`` (``engine/pipelines.py``); it is ignored for the v4 family, as
 in the JAX session.  Left out, as TPU-only machinery: planar/region
 executors, the warp-variant probe, the compile cache.
+
+Each step records spans (``utils/profiling.py``), id the session's step
+number: ``session.step`` (``process_batch_device``) holding
+``session.upload`` (both inputs onto the device) and ``session.forward``
+(holding each net's ``executor.run``); ``process_batch`` adds
+``session.wait`` (until the step's work is done) and ``session.download``.
+On a card a CUDA timing-event pair brackets ``session.forward`` on the
+current stream (``EventTimer``), kept with the ``session.step`` span.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Optional
 
 import numpy as np
@@ -43,6 +52,7 @@ from ..graph.rewrite import (
 )
 from ..models.zoo import load_model
 from ..ops import torch_ops
+from ..utils.profiling import EventTimer, span
 from . import pipelines
 
 PAD_ALIGN = 32  # the reference pads frames to 32px multiples
@@ -129,12 +139,15 @@ class RIFE:
                 "u8_image_blobs": frozenset(
                     graph.value_copies_of(_IMG_SEEDS.get(name, ()))),
                 "planar_convs": family != "v4",
-            })
+            }, name=name)
             ex.render_planar = any(
                 n.type == "rife.RenderBlend" for n in graph.nodes)
             self.executors[name] = ex
             self.weights[name] = torch_ops.prepare_weights(
                 graph, weights, self.dtype, self.device)
+        self._steps = itertools.count()
+        self._timer = (EventTimer() if self.device.type == "cuda"
+                       else None)
 
     @property
     def executor(self) -> Executor:
@@ -171,10 +184,28 @@ class RIFE:
         The v1 and v2 families interpolate the midpoint only: any timestep
         other than 0.5 raises ``ValueError`` (``rife_tpu``
         session.py:471-477)."""
-        ts = self.timesteps_of(in0, in1, timesteps)
-        return self.forward(self.frames_on(in0, self.device),
-                            self.frames_on(in1, self.device), ts,
-                            self.executors, self.weights)
+        return self._step(in0, in1, timesteps)[0]
+
+    def _step(self, in0, in1, timesteps):
+        """``process_batch_device``'s result, its step number and an event
+        recorded after it on the card (None on the CPU or where the step
+        went untimed)."""
+        n = next(self._steps)
+        with span("session.step", n) as step:
+            ts = self.timesteps_of(in0, in1, timesteps)
+            with span("session.upload", n):
+                a = self.frames_on(in0, self.device)
+                b = self.frames_on(in1, self.device)
+            if self._timer is not None:
+                stream = torch.cuda.current_stream(self.device)
+                pair = self._timer.start(stream)
+            else:
+                pair = None
+            with span("session.forward", n):
+                out = self.forward(a, b, ts, self.executors, self.weights)
+            done = (self._timer.stop(pair, stream, step.seq)
+                    if pair is not None else None)
+        return out, n, done
 
     def forward(self, a: torch.Tensor, b: torch.Tensor, ts: np.ndarray,
                 executors, weights) -> torch.Tensor:
@@ -205,7 +236,15 @@ class RIFE:
 
     def process_batch(self, in0, in1, timesteps) -> np.ndarray:
         """Interpolate a batch: (B,H,W,3) u8 pairs + (B,) timesteps -> u8."""
-        return self.process_batch_device(in0, in1, timesteps).cpu().numpy()
+        out, n, done = self._step(in0, in1, timesteps)
+        with span("session.wait", n):
+            if done is None and out.is_cuda:
+                done = torch.cuda.Event()
+                done.record(torch.cuda.current_stream(out.device))
+            if done is not None:
+                done.synchronize()
+        with span("session.download", n):
+            return out.cpu().numpy()
 
     def process(self, in0: np.ndarray, in1: np.ndarray,
                 timestep: float = 0.5) -> np.ndarray:

@@ -4,13 +4,16 @@
 ``Executor.run`` mirrors ncnn Extractor semantics: callers provide input
 blobs (any blob may be pinned, not just graph inputs — the v4 TTA pyramid
 re-injects flow0..flow3 this way) and request any named blobs as outputs.
-The layer kinds come from an op table (``ops/torch_ops.OP_TABLE``).
+The layer kinds come from an op table (``ops/torch_ops.OP_TABLE``).  Each
+run is one ``executor.run`` span (``utils/profiling.py``), id the net's
+``name``.
 """
 
 from __future__ import annotations
 
 from typing import Any, Dict, List, Mapping, Sequence
 
+from ..utils.profiling import span
 from .ir import Graph
 from .weights import LayerWeights
 
@@ -22,11 +25,13 @@ class Executor:
         op_table: Mapping[str, Any],
         raw_weights: Mapping[str, LayerWeights],
         ctx: Dict[str, Any] | None = None,
+        name: str = "",
     ):
         self.graph = graph
         self.op_table = op_table
         self.raw_weights = raw_weights
         self.ctx = ctx or {}
+        self.name = name
 
     def run(
         self,
@@ -36,6 +41,10 @@ class Executor:
     ) -> List[Any]:
         """Execute; ``ctx`` entries override the constructor context (the
         pipelines pass the prepared weights this way)."""
+        with span("executor.run", self.name):
+            return self._run(inputs, outputs, ctx)
+
+    def _run(self, inputs, outputs, ctx) -> List[Any]:
         ctx = {**self.ctx, **ctx} if ctx else self.ctx
         blobs: Dict[str, Any] = dict(inputs)
         needed = self.graph.required_nodes(outputs, list(inputs.keys()))

@@ -19,10 +19,21 @@ save stage and frees the slot.  At most two batches are in flight per
 session, so upload, compute, download and the codecs overlap.  A session on
 the CPU takes the sync path (``process_batch``): pinning memory would
 initialise CUDA.
+
+Every stage records spans (``utils/profiling.py``), on threads whose roles
+are ``load``, ``proc``, ``download`` and ``save``: ``runner.run`` (the
+caller), ``runner.load`` and ``runner.save`` (a task id), ``runner.wait_load``
+(``toproc`` empty), ``runner.stack`` (a batch id with its task ids),
+``runner.wait_device`` (both batches in flight), ``runner.launch`` (the
+upload and the step's dispatch), ``runner.wait_download`` and
+``runner.copy_out`` (the rows out of the pinned slot), ``runner.wait_save``
+(``tosave`` full; a task id) and ``runner.proc`` (a batch from its stacking
+to its rows' delivery).
 """
 
 from __future__ import annotations
 
+import itertools
 import queue
 import threading
 import time
@@ -34,10 +45,14 @@ from typing import Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..utils import profiling
+from ..utils.profiling import record, set_role, span
 from .image import decode_image, encode_image
 
 QUEUE_DEPTH = 8  # reference uses 8-deep task queues (main.cpp:259)
 IN_FLIGHT = 2  # batches a session has between dispatch and download
+_BATCH_IDS = itertools.count()
+STAGE, WAIT = "runner.", "runner.wait_"
 
 
 class StageMetrics:
@@ -45,32 +60,52 @@ class StageMetrics:
     all, SURVEY.md §5; production serving needs at least this much), and the
     time the proc stage waited: on the load stage (``toproc`` empty), on the
     device (both batches in flight) and on the save stage (``tosave``
-    full)."""
+    full).  A view of the runner's spans summed into ``sums``: stage ``x``
+    is span ``runner.x`` (tasks counted), wait ``on x`` span
+    ``runner.wait_x``."""
 
     def __init__(self):
-        self._lock = threading.Lock()
-        self.counts: Dict[str, int] = {}
-        self.seconds: Dict[str, float] = {}
-        self.waits: Dict[str, float] = {}
+        self.sums = profiling.Sums()
+
+    def _by(self, col: int, waits: bool) -> dict:
+        snap = self.sums.snapshot()
+        if waits:
+            return {"on " + k[len(WAIT):]: v[col] for k, v in snap.items()
+                    if k.startswith(WAIT)}
+        return {k[len(STAGE):]: v[col] for k, v in snap.items()
+                if not k.startswith(WAIT)}
+
+    @property
+    def counts(self) -> Dict[str, int]:
+        return self._by(0, False)
+
+    @property
+    def seconds(self) -> Dict[str, float]:
+        return self._by(1, False)
+
+    @property
+    def waits(self) -> Dict[str, float]:
+        return self._by(1, True)
 
     def add(self, stage: str, seconds: float, n: int = 1):
-        with self._lock:
-            self.counts[stage] = self.counts.get(stage, 0) + n
-            self.seconds[stage] = self.seconds.get(stage, 0.0) + seconds
+        t = time.perf_counter()
+        record(STAGE + stage, t - seconds, t, into=self.sums, n=n)
 
     def wait(self, what: str, seconds: float):
-        with self._lock:
-            self.waits[what] = self.waits.get(what, 0.0) + seconds
+        t = time.perf_counter()
+        record(WAIT + what.removeprefix("on ").replace(" ", "_"),
+               t - seconds, t, into=self.sums)
 
     def summary(self) -> str:
+        counts, seconds, waits = self.counts, self.seconds, self.waits
         parts = []
-        for stage in sorted(self.counts):
-            n, s = self.counts[stage], self.seconds[stage]
+        for stage in sorted(counts):
+            n, s = counts[stage], seconds[stage]
             rate = n / s if s > 0 else float("inf")
             parts.append(f"{stage}: {n} in {s:.2f}s ({rate:.1f}/s)")
-        if self.waits:
+        if waits:
             parts.append("proc waited " + ", ".join(
-                f"{w} {s:.2f}s" for w, s in sorted(self.waits.items())))
+                f"{w} {s:.2f}s" for w, s in sorted(waits.items())))
         return "; ".join(parts)
 
 
@@ -167,11 +202,13 @@ class _CudaStaging:
             slot.done.record(self.side)
 
     @staticmethod
-    def fetch(slot: _Slot, n: int) -> np.ndarray:
+    def fetch(slot: _Slot, n: int, batch_id: int) -> np.ndarray:
         """The first ``n`` output rows, copied out of the slot once its
         download has completed."""
-        slot.done.synchronize()
-        return slot.out.numpy()[:n].copy()
+        with span("runner.wait_download", batch_id):
+            slot.done.synchronize()
+        with span("runner.copy_out", batch_id):
+            return slot.out.numpy()[:n].copy()
 
 
 class PipelineRunner:
@@ -244,13 +281,15 @@ class PipelineRunner:
                     raise ValueError(
                         f"size mismatch {task.in0.shape} vs {task.in1.shape}"
                     )
-                self.metrics.add("load", time.perf_counter() - t0)
+                record("runner.load", t0, time.perf_counter(), task.id,
+                       into=self.metrics.sums)
                 return task
             except Exception as e:  # noqa: BLE001 - stage must not die
                 self._record_error(f"decode {task.in0_path}/{task.in1_path}: {e}")
                 return None
 
-        with ThreadPoolExecutor(self.jobs_load) as pool:
+        with ThreadPoolExecutor(self.jobs_load, initializer=set_role,
+                                initargs=("load",)) as pool:
             for done in pool.map(decode, tasks):
                 if done is not None:
                     self.toproc.put(done)
@@ -258,6 +297,7 @@ class PipelineRunner:
     def _proc(self, process_batch: Callable, batch_size: int,
               device_fn: Optional[Callable],
               device: Optional[torch.device]):
+        set_role("proc")
         if device is not None and device.type == "cuda" and device_fn:
             # streams and the current device are per thread
             with torch.cuda.device(device), torch.inference_mode():
@@ -283,38 +323,46 @@ class PipelineRunner:
         # async path: at most IN_FLIGHT batches in flight (dispatch k+1
         # while k computes/downloads), downloads drain in order on one thread
         inflight = threading.BoundedSemaphore(IN_FLIGHT)
-        downloads = ThreadPoolExecutor(1) if device_fn else None
+        downloads = (ThreadPoolExecutor(1, initializer=set_role,
+                                        initargs=("download",))
+                     if device_fn else None)
+        sums = self.metrics.sums
+
+        def to_save(task):
+            with span("runner.wait_save", task.id, into=sums):
+                self.tosave.put(task)
 
         def deliver(batch, outs):
             for t, o in zip(batch, outs):
                 t.out = o
-                t0 = time.perf_counter()
-                self.tosave.put(t)
-                self.metrics.wait("on save", time.perf_counter() - t0)
+                to_save(t)
 
-        def download(batch, dev_out, t0):
+        def download(batch, bid, dev_out, t0):
             try:
                 if staging is not None:
                     try:
-                        outs = staging.fetch(dev_out, len(batch))
+                        outs = staging.fetch(dev_out, len(batch), bid)
                     finally:
                         staging.release(dev_out)
                 else:
-                    outs = np.asarray(dev_out)
+                    with span("runner.copy_out", bid):
+                        outs = np.asarray(dev_out)
                 deliver(batch, outs)
-                self.metrics.add("proc", time.perf_counter() - t0, len(batch))
+                record("runner.proc", t0, time.perf_counter(), bid,
+                       into=sums, n=len(batch))
             except Exception as e:  # noqa: BLE001
                 self._record_error(f"download batch: {e}")
             finally:
                 inflight.release()
 
-        def stack(batch, in0, in1):
+        def stack(batch, bid, in0, in1):
             """Stack the batch's frames into ``in0``/``in1`` (B rows); rows
             past the batch replay its last pair."""
             n = len(batch)
-            for dst, key in ((in0, "in0"), (in1, "in1")):
-                np.stack([getattr(t, key) for t in batch], out=dst[:n])
-                dst[n:] = dst[n - 1]
+            with span("runner.stack", (bid, tuple(t.id for t in batch))):
+                for dst, key in ((in0, "in0"), (in1, "in1")):
+                    np.stack([getattr(t, key) for t in batch], out=dst[:n])
+                    dst[n:] = dst[n - 1]
 
         def flush(shape_key):
             batch = pending.pop(shape_key, None)
@@ -322,6 +370,7 @@ class PipelineRunner:
                 return
             try:
                 t0 = time.perf_counter()
+                bid = next(_BATCH_IDS)
                 ts = np.asarray([t.timestep for t in batch], np.float32)
                 bp = len(batch)
                 if len(batch) >= batch_size:
@@ -332,38 +381,40 @@ class PipelineRunner:
                 shape = (bp, *shape_key)
                 if downloads is None:
                     in0, in1 = np.empty(shape, np.uint8), np.empty(shape, np.uint8)
-                    stack(batch, in0, in1)
-                    outs = process_batch(in0, in1, ts)
-                    self.metrics.add("proc", time.perf_counter() - t0, len(batch))
+                    stack(batch, bid, in0, in1)
+                    with span("runner.launch", bid):
+                        outs = process_batch(in0, in1, ts)
+                    record("runner.proc", t0, time.perf_counter(), bid,
+                           into=sums, n=len(batch))
                     deliver(batch, outs)
                     return
-                tw = time.perf_counter()
-                inflight.acquire()
-                self.metrics.wait("on device", time.perf_counter() - tw)
+                with span("runner.wait_device", bid, into=sums):
+                    inflight.acquire()
                 slot = None
                 try:
                     if staging is None:
                         in0 = np.empty(shape, np.uint8)
                         in1 = np.empty(shape, np.uint8)
-                        stack(batch, in0, in1)
-                        dev_out = device_fn(in0, in1, ts)
+                        stack(batch, bid, in0, in1)
+                        with span("runner.launch", bid):
+                            dev_out = device_fn(in0, in1, ts)
                     else:
                         slot = dev_out = staging.acquire(shape)
-                        stack(batch, slot.in0.numpy(), slot.in1.numpy())
-                        staging.launch(slot, ts)
+                        stack(batch, bid, slot.in0.numpy(), slot.in1.numpy())
+                        with span("runner.launch", bid):
+                            staging.launch(slot, ts)
                 except Exception:
                     if slot is not None:
                         staging.release(slot)
                     inflight.release()
                     raise
-                downloads.submit(download, batch, dev_out, t0)
+                downloads.submit(download, batch, bid, dev_out, t0)
             except Exception as e:  # noqa: BLE001
                 self._record_error(f"process batch: {e}")
 
         while True:
-            tw = time.perf_counter()
-            task = self.toproc.get()
-            self.metrics.wait("on load", time.perf_counter() - tw)
+            with span("runner.wait_load", into=sums):
+                task = self.toproc.get()
             if task is None:
                 for key in list(pending.keys()):
                     flush(key)
@@ -375,11 +426,11 @@ class PipelineRunner:
             # (rife.cpp:395-405) — no device work at all
             if task.timestep == 0.0:
                 task.out = task.in0
-                self.tosave.put(task)
+                to_save(task)
                 continue
             if task.timestep == 1.0:
                 task.out = task.in1
-                self.tosave.put(task)
+                to_save(task)
                 continue
             key = task.in0.shape
             pending.setdefault(key, []).append(task)
@@ -398,7 +449,8 @@ class PipelineRunner:
             t0 = time.perf_counter()
             try:
                 encode_image(task.out_path, task.out)
-                self.metrics.add("save", time.perf_counter() - t0)
+                record("runner.save", t0, time.perf_counter(), task.id,
+                       into=self.metrics.sums)
                 if self.verbose:
                     print(
                         f"{task.in0_path} {task.in1_path} {task.timestep} "
@@ -412,9 +464,11 @@ class PipelineRunner:
                 task.in0 = task.in1 = task.out = None  # free pixels
                 inflight.release()
 
+        set_role("save")
         n_procs = len(self.process_batches)
         finished_procs = 0
-        with ThreadPoolExecutor(self.jobs_save) as pool:
+        with ThreadPoolExecutor(self.jobs_save, initializer=set_role,
+                                initargs=("save",)) as pool:
             while finished_procs < n_procs:
                 task = self.tosave.get()
                 if task is None:
@@ -427,6 +481,13 @@ class PipelineRunner:
 
     def run(self, tasks: Sequence[Task]) -> List[str]:
         """Run all tasks; returns accumulated stage errors (empty = clean)."""
+        with span("runner.run"):
+            self._run(tasks)
+        if self.verbose:
+            print(f"pipeline: {self.metrics.summary()}")
+        return self.errors
+
+    def _run(self, tasks: Sequence[Task]) -> None:
         loader = threading.Thread(target=self._load, args=(tasks,))
         procs = [
             threading.Thread(target=self._proc, args=(fn, bs, dfn, dev))
@@ -445,6 +506,3 @@ class PipelineRunner:
         for p in procs:
             p.join()
         saver.join()
-        if self.verbose:
-            print(f"pipeline: {self.metrics.summary()}")
-        return self.errors

@@ -6,7 +6,8 @@ synthetic weights) at 1080p, B=8 by default, plain or with ``--fuse-ds2``
 and ``--tta`` (``-x -z``), or with ``--uhd`` (``-u``, v2.3 and v1, on
 2160x3840 frames), under ``torch.profiler`` and prints: the step's wall
 time, the summed device time of its kernels, the device's idle share over
-the profiled window, and the kernels ranked by device time.  ``--by-op``
+the profiled window (1 - the union of its device intervals, so streams
+that overlap count once), and the kernels ranked by device time.  ``--by-op``
 profiles the same steps once more with every graph node under a
 ``record_function`` of its layer kind (a ``BinaryOp`` or ``PReLU`` on a
 (B,C) vector is marked "SE", the v1 gates' scale and slope) and prints the
@@ -37,6 +38,25 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+
+def busy_us(kineto_events) -> float:
+    """Microseconds in which anything ran on the device: the union of the
+    device events' intervals (``prof.profiler.kineto_results.events()``;
+    ``record_function``'s device-side copies left out)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in kineto_events if e.device_type() == cuda
+                   and not e.is_user_annotation())
+    total, edge = 0, None
+    for s, e in spans:
+        if edge is None or s > edge:
+            total += e - s
+            edge = e
+        elif e > edge:
+            total += e - edge
+            edge = e
+    return total / 1e3
 
 
 def main() -> int:
@@ -108,11 +128,12 @@ def main() -> int:
                 step.process_batch_device(f0, f1, ts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        return prof.key_averages(), wall
+        return (prof.key_averages(), wall,
+                busy_us(prof.profiler.kineto_results.events()))
 
-    events, wall = run_steps()
+    events, wall, union_us = run_steps()
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.self_device_time_total for e in dev)
+    kernel_us = sum(e.self_device_time_total for e in dev)
     step_ms = wall / args.steps * 1e3
     modes = (" fuse_ds2" * args.fuse_ds2 + " -x -z" * args.tta
              + " -u" * args.uhd)
@@ -121,15 +142,15 @@ def main() -> int:
     print(f"{LABEL},{modes or ' plain'}, bf16 {h}x{w} B={b}, "
           f"{torch.cuda.get_device_name(0)}")
     print(f"step wall {step_ms:.3f} ms (profiled), device kernel time "
-          f"{busy_us / 1e3 / args.steps:.3f} ms/step, idle share "
-          f"{1 - busy_us / 1e6 / wall:.3f}")
+          f"{kernel_us / 1e3 / args.steps:.3f} ms/step, idle share "
+          f"{1 - union_us / 1e6 / wall:.3f}")
     dev.sort(key=lambda e: e.self_device_time_total, reverse=True)
     for e in dev[:25]:
         print(f"{e.self_device_time_total / 1e3 / args.steps:9.3f} ms/step "
-              f"{100 * e.self_device_time_total / busy_us:5.1f}%  "
+              f"{100 * e.self_device_time_total / kernel_us:5.1f}%  "
               f"x{e.count // args.steps:<4d} {e.key[:90]}")
     if args.by_op:
-        by_op(sess, run_steps, args.steps, busy_us)
+        by_op(sess, run_steps, args.steps, kernel_us)
     if args.table:
         args.table.parent.mkdir(parents=True, exist_ok=True)
         args.table.write_text(events.table(sort_by="self_cuda_time_total",
@@ -137,7 +158,7 @@ def main() -> int:
     return 0
 
 
-def by_op(sess, run_steps, steps, busy_us):
+def by_op(sess, run_steps, steps, kernel_us):
     """Profile the steps with every node under ``record_function("op::<layer
     kind>")`` and print the device time under each label, a step's."""
     from torch.profiler import record_function
@@ -157,7 +178,7 @@ def by_op(sess, run_steps, steps, busy_us):
         tables[name] = ex.op_table
         ex.op_table = {k: labelled(k, fn) for k, fn in ex.op_table.items()}
     try:
-        events, _ = run_steps()
+        events = run_steps()[0]
     finally:
         for name, ex in sess.executors.items():
             ex.op_table = tables[name]
@@ -173,7 +194,7 @@ def by_op(sess, run_steps, steps, busy_us):
           f"outside them)")
     for e in ops:
         print(f"{e.device_time_total / 1e3 / steps:9.3f} ms/step "
-              f"{100 * e.device_time_total / busy_us:5.1f}%  "
+              f"{100 * e.device_time_total / kernel_us:5.1f}%  "
               f"x{e.count // steps:<5d} {e.key[4:]}")
 
 
