@@ -197,7 +197,7 @@ def forward_v1v2(nets, weights, family: str, in0_u8: torch.Tensor,
                                "input1": resize2d(i1, hh, hw)}, ["flow"],
                    no_u8_warp=True)[0]
         flow = resize2d(flow, flow.shape[2] * 2, flow.shape[3] * 2)
-        return flow * torch.tensor(2.0, dtype=flow.dtype, device=flow.device)
+        return flow * 2.0  # exact in every float dtype, as a tensor's 2.0
 
     merge = frame.flow_temporal_avg_v2 if v2 else frame.flow_temporal_avg_v1
 

@@ -20,6 +20,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .torch_ops import scalar
+
 
 def preprocess(img_u8: torch.Tensor, pad_h: int, pad_w: int,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
@@ -29,8 +31,7 @@ def preprocess(img_u8: torch.Tensor, pad_h: int, pad_w: int,
     The multiply by 1/255 runs in the storage dtype, as the reference does
     (``frame.py:37``): in bf16 the constant is bf16(1/255)."""
     b, h, w, _ = img_u8.shape
-    x = img_u8.permute(0, 3, 1, 2).to(dtype) * torch.tensor(
-        1.0 / 255.0, dtype=dtype, device=img_u8.device)
+    x = img_u8.permute(0, 3, 1, 2).to(dtype) * scalar(1.0 / 255.0, dtype)
     # the permuted view carries channels-last strides; the warp kernels
     # take contiguous NCHW planes
     return F.pad(x, (0, pad_w - w, 0, pad_h - h)).contiguous()

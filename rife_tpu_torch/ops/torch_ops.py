@@ -17,7 +17,9 @@ Every kind outside ``OP_TABLE`` raises ``NotImplementedError`` in
 * PixelShuffle is ``F.pixel_shuffle`` (channel c*r*r + i*r + j, as
   ``jax_ops.pixel_shuffle``);
 * scalar constants are cast to the storage dtype before they multiply, as
-  ``jnp.asarray(c, x.dtype)`` does;
+  ``jnp.asarray(c, x.dtype)`` does (``scalar``; no op of a step copies a
+  constant from the host: from pageable memory that copy waits for every
+  op queued before it);
 * ``InnerProduct`` rounds its f32 product to the storage dtype before it
   adds the bias in that dtype, and global ``Pooling`` sums in f32 and
   divides before its one rounding, as ``jnp.dot`` / ``jnp.mean`` do.
@@ -41,8 +43,9 @@ warp to the float mode.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Dict
+from typing import Callable, Dict, Hashable
 
 import numpy as np
 import torch
@@ -53,8 +56,44 @@ from . import conv as CV
 from . import warp as W
 
 
-def _const(x: torch.Tensor, v: float) -> torch.Tensor:
-    return torch.tensor(v, dtype=x.dtype, device=x.device)
+def scalar(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``, as a Python float.  A ``dtype`` tensor
+    times (plus, minus) it computes the bits it does with the 0-dim
+    ``torch.tensor(v, dtype=dtype)``: the op's opmath (f32) on the two
+    values, rounded once.  The scalar travels in the kernel's arguments,
+    so the op needs no host-to-device copy."""
+    v = float(v)
+    return _rounded(v, math.copysign(1.0, v), dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def _rounded(v: float, sign: float, dtype: torch.dtype) -> float:
+    # ``sign`` keeps -0.0 and 0.0 apart: they are equal as keys
+    return float(torch.tensor(v, dtype=dtype))
+
+
+# Tensors built on the host and copied to their device once, at a step's
+# first use; immutable, shared by every session of the process.
+_ONCE: Dict[Hashable, torch.Tensor] = {}
+
+
+def _once(key: Hashable, make: Callable[[], torch.Tensor]) -> torch.Tensor:
+    t = _ONCE.get(key)
+    if t is None:
+        t = _ONCE.setdefault(key, make())
+    return t
+
+
+def device_const(v: float, dtype: torch.dtype, device) -> torch.Tensor:
+    """The 0-dim ``torch.tensor(v, dtype=dtype, device=device)``, made once
+    per (value, dtype, device): for the ops whose arithmetic a host scalar
+    changes (CUDA divides by a host scalar as a multiply by its
+    reciprocal; ``c / x`` is then ``reciprocal(x) * c``; ``pow`` takes
+    special cases for a host exponent; ``maximum`` / ``minimum`` take no
+    scalar)."""
+    v = float(v)
+    return _once(("const", v, math.copysign(1.0, v), dtype, device),
+                 lambda: torch.tensor(v, dtype=dtype, device=device))
 
 
 def _dim(axis: int, rank: int) -> int:
@@ -80,7 +119,7 @@ def apply_activation(y: torch.Tensor, act: int, params, slope=None):
     if act == C.ACT_RELU:
         return torch.clamp_min(y, 0)
     if act == C.ACT_LEAKY:
-        return torch.where(y >= 0, y, y * _const(y, params[0]))
+        return torch.where(y >= 0, y, y * scalar(params[0], y.dtype))
     if act == C.ACT_CLIP:
         return torch.clamp(y, params[0], params[1])
     if act == C.ACT_SIGMOID:
@@ -102,7 +141,8 @@ def _upsample_axis(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
         f = src - d
         a = x.index_select(dim, (ar + d).clamp(0, size - 1))
         b = x.index_select(dim, (ar + d + 1).clamp(0, size - 1))
-        phases.append(a * _const(x, 1.0 - f) + b * _const(x, f))
+        phases.append(a * scalar(1.0 - f, x.dtype)
+                      + b * scalar(f, x.dtype))
     shape = list(x.shape)
     shape[dim] = size * n
     return torch.stack(phases, dim=dim + 1).reshape(shape)
@@ -118,7 +158,7 @@ def _downsample_axis(x: torch.Tensor, n: int, dim: int) -> torch.Tensor:
         idx[dim] = slice(start, size, n)
         return x[tuple(idx)]
 
-    half = _const(x, 0.5)
+    half = scalar(0.5, x.dtype)
     return take(n // 2 - 1) * half + take(n // 2) * half
 
 
@@ -141,6 +181,11 @@ def resize2d(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     return x
 
 
+def _nearest_index(src: int, dst: int, device) -> torch.Tensor:
+    pos = (torch.arange(dst, dtype=torch.float32) + 0.5) * src / dst
+    return torch.floor(pos).long().to(device)
+
+
 def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Nearest resize as ``jax.image.resize(..., "nearest")`` computes it:
     output index i of an axis of n reads input floor((i + 0.5) * m / n),
@@ -150,8 +195,9 @@ def resize_nearest(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
         src = x.shape[dim]
         if dst == src:
             continue
-        pos = (torch.arange(dst, dtype=torch.float32) + 0.5) * src / dst
-        x = x.index_select(dim, torch.floor(pos).long().to(x.device))
+        x = x.index_select(dim, _once(("nearest", src, dst, x.device),
+                                      lambda: _nearest_index(src, dst,
+                                                             x.device)))
     return x
 
 
@@ -337,7 +383,7 @@ def _op_relu(node, inputs, w, ctx):
     x = inputs[0]
     if slope == 0.0:
         return [torch.clamp_min(x, 0)]
-    return [torch.where(x >= 0, x, x * _const(x, slope))]
+    return [torch.where(x >= 0, x, x * scalar(slope, x.dtype))]
 
 
 def _op_clip(node, inputs, w, ctx):
@@ -355,6 +401,9 @@ _BINARY = {
     C.BINARY_RSUB: lambda a, b: b - a,
     C.BINARY_RDIV: lambda a, b: b / a,
 }
+# the kinds whose bits a Python scalar keeps (``scalar``); ``c - x`` is one
+# ``torch.rsub``
+_HOST_SCALAR = (C.BINARY_ADD, C.BINARY_SUB, C.BINARY_MUL, C.BINARY_RSUB)
 
 
 def _broadcast_pair(a: torch.Tensor, b: torch.Tensor):
@@ -376,7 +425,10 @@ def _op_binaryop(node, inputs, w, ctx):
                                   f"ported")
     a = inputs[0]
     if int(node.p(1, 0)) == 1:
-        return [op(a, _const(a, float(node.p(2, 0.0))))]
+        v = float(node.p(2, 0.0))
+        if int(node.p(0, 0)) in _HOST_SCALAR:
+            return [op(a, scalar(v, a.dtype))]
+        return [op(a, device_const(v, a.dtype, a.device))]
     return [op(*_broadcast_pair(a, inputs[1]))]
 
 
@@ -434,9 +486,9 @@ def _op_eltwise(node, inputs, w, ctx):
     if int(node.p(0, 0)) != 1:
         raise NotImplementedError("only Eltwise SUM is used by the zoo")
     coeffs = C.eltwise_coeffs(node, len(inputs))
-    acc = inputs[0] * _const(inputs[0], coeffs[0])
+    acc = inputs[0] * scalar(coeffs[0], inputs[0].dtype)
     for x, cf in zip(inputs[1:], coeffs[1:]):
-        acc = acc + x * _const(x, cf)
+        acc = acc + x * scalar(cf, x.dtype)
     return [acc]
 
 

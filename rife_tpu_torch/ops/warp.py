@@ -198,8 +198,10 @@ def _ds4_taps(n: int, device) -> torch.Tensor:
 
 
 def _half_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
-    """0.5*even + 0.5*odd along ``dim`` in the storage dtype."""
-    half = torch.tensor(0.5, dtype=x.dtype, device=x.device)
+    """0.5*even + 0.5*odd along ``dim`` in the storage dtype (0.5 is exact
+    in every float dtype: as a Python scalar it needs no copy to the
+    device)."""
+    half = 0.5
     ev = x.narrow(dim, 0, x.shape[dim] // 2 * 2)
     shape = list(ev.shape)
     shape[dim:dim + 1] = [shape[dim] // 2, 2]
