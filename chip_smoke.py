@@ -55,7 +55,14 @@ on the one card named several times:
    with TF32 off and its f32 bound (f32 bytes over 3.35 TB/s or 2 x MACs
    over the FP32 pipes at ``clocks.max.sm``), summed over each step, each
    site weighted by its launches a step; then the f32 v2.3 step's device
-   time.
+   time.  The library conv sites' epilogue kernel (``phase_bias_act``) at
+   each distinct site of the bf16 1080p B=8 v4.6 and v2.3 steps (recorded
+   from the wrapper's calls, as many as ``plan.kernel_sites`` says), on the
+   site's own bias and slope: bit for bit with its twin in bf16 and f32,
+   and its device time (``torch.profiler``) beside its bound (the output
+   read and written once), its twin's and that of the eager bias ``add_``
+   + activation it replaced (the report's library time), each summed over
+   a step.
    Every other timed kernel is printed beside its
    bound (bytes once over 3.35 TB/s, or bf16 FLOP over 989 TFLOP/s) and,
    for ``warp_feat``, ``grid_sample`` on a prebuilt grid.  Bars: warps f32
@@ -65,7 +72,8 @@ on the one card named several times:
 4. runs the v4.6 slice: (a) f32 on the card (TF32 off) against the same
    session on the CPU at 256x448, u8 max |d| <= 1 and >= 99.9% exact; (b)
    bf16 1080p B=8 on smooth synthetic frames, every launch counter set to 0
-   just before and read just after: 1 ds4-pair, 2 pair, 1 render per step;
+   just before and read just after: 1 ds4-pair, 2 pair, 1 render, 4
+   deconv and 40 ``bias_act`` (the library conv sites' epilogue) per step;
 5. runs the v2.3 slice: (a) f32 on the card against the CPU session at
    544x960 (a size at which the gates route conv sites to ``conv3x3``), same
    bar, launches equal to ``plan.kernel_sites``; (b) bf16 1080p B=8, PSNR of
@@ -256,6 +264,8 @@ KERNELS = {
                 [f"{CONV_SRC}:485", f"{CONV_SRC}:97", f"{CONV_SRC}:190"]),
     "conv3x3_ps": ("conv_ps.cu", f"{CONV_SRC}:756", []),
     "deconv4x4": ("deconv.cu", f"{CONV_SRC}:784", [f"{CONV_SRC}:732"]),
+    # the port's own: XLA fuses a conv's bias and activation into the conv
+    "bias_act": ("bias_act.cu", "none", []),
 }
 # the B4 deconv form's reference site: the v4.6 block tail,
 # deconv 64 -> 24 then PixelShuffle 2, at the 1/4 grid of a 1080p B=8 step
@@ -266,6 +276,7 @@ DECONV_PS_SITE = ((64,), 24, 2, 272, 480)
 KERNEL_SYMBOLS = {
     "warp_pair": "warp_gather_kernel", "warp_render": "warp_render_kernel",
     "warp_ds4_pair": "warp_ds4_pair_kernel", "deconv4x4": "deconv4x4_kernel",
+    "bias_act": "bias_act_kernel",
 }
 TRACE_STEPS = 3
 # the calibration: the three reconstructions under their zoo names; the
@@ -290,9 +301,10 @@ PAIR_KERNELS = {  # name: (wrapper, twin)
 # launches per step of the fused plain paths at 1080p
 FUSED_PER_STEP = {
     "v4.6": {"warp_ds4_pair": 1, "warp_pair": 1, "warp_ds2": 2,
-             "warp_render": 1, "deconv4x4": 4},
+             "warp_render": 1, "deconv4x4": 4, "bias_act": 40},
     "v2.3": {"conv3x3": 8, "deconv4x4": 9, "warp_feat": 4, "warp_u8": 2,
-             "warp_pair": 1, "warp_ds2": 2, "warp_ds4_pair": 1},
+             "warp_pair": 1, "warp_ds2": 2, "warp_ds4_pair": 1,
+             "bias_act": 44},
 }
 
 
@@ -399,11 +411,12 @@ def time_ms(fn, iters=20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, kernel: str, iters=20) -> float:
+def device_ms(fn, kernel: str | None, iters=20) -> float:
     """The device time of one launch of the kernel whose name contains
-    ``kernel``, from ``torch.profiler`` over ``iters`` calls of ``fn`` (no
-    host launch cost in it, unlike CUDA events around back-to-back calls of
-    a kernel shorter than its launch)."""
+    ``kernel`` (``None``: of one call of ``fn``, all its kernels summed),
+    from ``torch.profiler`` over ``iters`` calls of ``fn`` (no host launch
+    cost in it, unlike CUDA events around back-to-back calls of a kernel
+    shorter than its launch)."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(3):
@@ -413,6 +426,13 @@ def device_ms(fn, kernel: str, iters=20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
+    if kernel is None:
+        cuda = torch.autograd.DeviceType.CUDA
+        ns = sum(e.duration_ns()
+                 for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == cuda and not e.is_user_annotation())
+        require(ns > 0, "the profiler recorded no device time")
+        return ns / 1e6 / iters
     hits = [e for e in prof.key_averages() if kernel in e.key]
     require(bool(hits), f"the profiler saw no {kernel} launch")
     return (sum(e.self_device_time_total for e in hits)
@@ -1178,6 +1198,120 @@ def phase_deconv(device, rng, report, paths):
           "match the twin", flush=True)
 
 
+def library_epilogue_sites(sess, device):
+    """{(output shape, kernel activation code, leaky alpha, has bias, has
+    slope): [node names, the first site's bias_q, slope_q]} of the sites of
+    one bf16 1080p B=8 step of ``sess`` that launch ``bias_act``, recorded
+    from the wrapper's calls (the node from ``torch_ops._library_site``)."""
+    from rife_tpu_torch.ops import conv as CV
+    from rife_tpu_torch.ops import torch_ops as T
+
+    sites, node = {}, [None]
+    real_site, real_kernel = T._library_site, CV.bias_act
+
+    def site(n, *args):
+        node[0] = n.name
+        return real_site(n, *args)
+
+    def kernel(y, bias=None, slope=None, act=CV.ACT_NONE, alpha=0.2):
+        key = (tuple(y.shape), act, alpha, bias is not None,
+               slope is not None)
+        sites.setdefault(key, [[], bias, slope])[0].append(node[0])
+        return real_kernel(y, bias, slope, act, alpha)
+    T._library_site, CV.bias_act = site, kernel
+    try:
+        f0, f1 = smooth_frames(np.random.default_rng(7), *BENCH)
+        sess.process_batch_device(torch.from_numpy(f0).to(device),
+                                  torch.from_numpy(f1).to(device),
+                                  np.full(BENCH[0], 0.5, np.float32))
+        torch.cuda.synchronize()
+    finally:
+        T._library_site, CV.bias_act = real_site, real_kernel
+    return sites
+
+
+def phase_bias_act(device, dirs, report, card):
+    """The library conv sites' epilogue kernel (``bias_act``) at each
+    distinct site of the bf16 1080p B=8 v4.6 and v2.3 steps, on the site's
+    own bias and slope and seeded inputs of its shape: bit for bit with its
+    twin ``bias_act_ref`` in bf16 and in f32; in bf16 the device times
+    (``torch.profiler``, a call's kernels summed) of the kernel, the twin
+    and the eager ops the library route ran there without it (the bias
+    ``add_``, then ``torch_ops.apply_activation``: the library time of the
+    report), beside the bound (the output read and written once over 3.35
+    TB/s); each summed over a step, each site times its launches."""
+    from rife_tpu_torch import RIFE
+    from rife_tpu_torch.engine.plan import kernel_sites
+    from rife_tpu_torch.ops import conv as CV
+    from rife_tpu_torch.ops import torch_ops as T
+
+    common_act = {k: c for c, k in CV.ACT_MAP.items()}
+    gen = torch.Generator(device=device).manual_seed(20261018)
+    rep = report.setdefault("bias_act", {
+        "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+        "bound_by": "bytes", "library_ms": 0.0})
+    for model, mdir in dirs.items():
+        sess = RIFE(str(mdir), device=device)
+        sites = library_epilogue_sites(sess, device)
+        launches = sum(len(names) for names, _, _ in sites.values())
+        want = kernel_sites(sess, *BENCH[1:])
+        del sess
+        require(launches == want.get("bias_act", 0),
+                f"{model}: {launches} bias_act calls in a step, the plan "
+                f"says {want.get('bias_act', 0)}")
+        total = dict.fromkeys(("kernel", "twin", "library", "bound"), 0.0)
+        for (shape, act, alpha, _, _), (names, bias, slope) in sites.items():
+            y = torch.randn(shape, generator=gen, device=device) * 2
+            for dtype in (torch.bfloat16, torch.float32):
+                yd = y.to(dtype)
+                got = CV.bias_act(yd.clone(), bias, slope, act, alpha)
+                ref = CV.bias_act_ref(yd, bias, slope, act, alpha)
+                torch.cuda.synchronize()
+                ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+                require(torch.equal(got.view(ints), ref.view(ints)),
+                        f"bias_act {model} {names[0]} {shape} "
+                        f"{str(dtype)[6:]}: differs from its twin")
+            yb = y.to(torch.bfloat16)
+            yk, ye = yb.clone(), yb.clone()
+            b4 = None if bias is None else bias.to(yb.dtype).reshape(
+                1, -1, 1, 1)
+            s4 = None if slope is None else slope.to(yb.dtype).reshape(
+                1, -1, 1, 1)
+
+            def eager():
+                t = ye.add_(b4) if b4 is not None else ye
+                return T.apply_activation(t, common_act[act], [alpha], s4)
+            times = {
+                "kernel": device_ms(lambda: CV.bias_act(yk, bias, slope, act,
+                                                        alpha),
+                                    "bias_act_kernel"),
+                "twin": device_ms(lambda: CV.bias_act_ref(yb, bias, slope,
+                                                          act, alpha), None),
+                "library": device_ms(eager, None),
+                "bound": bound_ms(2 * nbytes(yb))[0]}
+            for k, v in times.items():
+                total[k] += len(names) * v
+            where = (f"{names[0]} .. {names[-1]} x{len(names)}"
+                     if len(names) > 1 else names[0])
+            share = 100 * times["bound"] / times["kernel"]
+            print(f"kernel bias_act bf16 {model} {where} {shape} act {act}: "
+                  f"bit for bit with its twin (bf16, f32); kernel "
+                  f"{times['kernel']:.4f} ms, bound {times['bound']:.4f} ms "
+                  f"({share:.1f}%), twin {times['twin']:.4f} ms, eager add_ "
+                  f"+ activation {times['library']:.4f} ms (device time)",
+                  flush=True)
+        print(f"bias_act over a {model} bf16 1080p B=8 step ({launches} "
+              f"launches at {len(sites)} distinct sites): kernel "
+              f"{total['kernel']:.4f} ms, bound {total['bound']:.4f} ms "
+              f"({100 * total['bound'] / total['kernel']:.1f}%), twin "
+              f"{total['twin']:.4f} ms, eager ops {total['library']:.4f} ms; "
+              f"card {card}", flush=True)
+        for k, key in (("kernel", "ms"), ("twin", "plain_ms"),
+                       ("library", "library_ms"), ("bound", "bound_ms")):
+            rep[key] += total[k]
+        torch.cuda.empty_cache()
+
+
 def assert_u8_close(got, want, what):
     diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
     exact = float((diff == 0).mean())
@@ -1263,7 +1397,7 @@ def phase_v46(device, model_dir, rng, card):
     print(f"v4.6 launches over {BENCH_STEPS} steps: {launches}; expected "
           f"per step: {per_step}", flush=True)
     require(per_step == {"warp_ds4_pair": 1, "warp_pair": 2, "warp_render": 1,
-                         "deconv4x4": 4}
+                         "deconv4x4": 4, "bias_act": 40}
             and launches == {k: v * BENCH_STEPS for k, v in per_step.items()},
             "v4.6 launch counts differ from plan.kernel_sites")
     del sess
@@ -1959,9 +2093,11 @@ def node_route(node, hand) -> str:
     """A node's route for the witnesses: the deconv kernel, another hand
     kernel, a cuDNN conv, the pooling (f32 partial sums per shard by
     design), or other (PyTorch elementwise, resize, concat, the SE
-    vectors)."""
+    vectors).  A cuDNN conv stays one with its epilogue kernel
+    (``bias_act``), which rounds nothing the library did not."""
     if node.type in DECONV_KINDS:
         return "deconv kernel" if hand.get("deconv4x4") else "cuDNN deconv"
+    hand = {k: n for k, n in hand.items() if k != "bias_act"}
     return ("hand kernel" if hand else
             "cuDNN conv" if node.type in CONV_KINDS else
             "pooling" if node.type == "Pooling" else "other")
@@ -2597,6 +2733,9 @@ def main() -> int:
             "a bf16 step with no deconv4x4 site")
     with timer.section("phase_deconv"):
         phase_deconv(device, rng, report, deconv_paths)
+    with timer.section("phase_bias_act"):
+        phase_bias_act(device, {"v4.6": v46_dir, "v2.3": v23_dir}, report,
+                       card)
     with timer.section("phase_v46"):
         runs = {"v4.6": phase_v46(device, v46_dir, rng, card)}
     with timer.section("phase_v23"):

@@ -15,7 +15,9 @@ its route (``ops/conv.py`` ``deconv_route``, for the session's device and
 dtype): ``deconv4x4`` wherever the deconv kernel runs (bf16 on the card:
 the planar sites and every other 4x4 stride-2 one), else, at a planar
 site, the ``conv3x3`` (``conv3x3_ps`` for a DeconvPS) that runs its phase
-conv.
+conv.  Every other conv and deconv site runs on the library; on the card
+(``epilogue_on_kernel``) each that has a bias or an activation the kernel
+takes launches ``bias_act`` once.
 Rank-2 blobs (the v1 SE gates: global ``Pooling``, ``InnerProduct``) have
 shape (C,).  The result, launches per kernel per step, does not depend on
 the batch size.  ``n_spatial`` > 1 counts a step height-sharded over that
@@ -84,6 +86,12 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
             return
         sites["warp_u8" if shape[0] == 3 and blob in u8 else "warp_feat"] += 1
 
+    def library(node):
+        # a library conv site's epilogue (``torch_ops._library_site``)
+        if CV.epilogue_on_kernel(device, C.activation_of(node)[0],
+                                 C.conv_hyperparams(node)[5]):
+            sites["bias_act"] += 1
+
     def pair_ok(node, a, b, fa, fb):
         return (not sharded and a == b and fa == fb and a[0] == 3
                 and node.bottoms[0] in u8 and node.bottoms[2] in u8)
@@ -114,6 +122,8 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
                                                  ctx):
                 convs.append((name, ((cin,), cout, stride, act, x[1], x[2],
                                      False)))
+            else:
+                library(node)
             oh, ow = _conv_out(node, x[1], x[2], False)
             if kind == "rife.ConvPS":
                 r = int(node.p(25, 2))
@@ -135,6 +145,8 @@ def _walk(ex, inputs: Dict[str, Shape], outputs, run_ctx=None,
                         else "conv3x3")
                 convs.append((name, ((x[0],), 4 * cout, 1, act, x[1], x[2],
                                      True)))
+            else:
+                library(node)
             oh, ow = _conv_out(node, x[1], x[2], True)
             if kind == "rife.DeconvPS":
                 outs = [(cout // 4, 2 * oh, 2 * ow)]

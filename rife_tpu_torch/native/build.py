@@ -145,6 +145,11 @@ def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.rife_deconv4x4.argtypes = ([vp, i, vp, i] + [vp] * 3 + [i] * 5
                                    + [ctypes.c_float, i, i, vp])
     lib.rife_deconv4x4.restype = i
+    # y (in place), bf16 flag, bias, slope; planes, channels, plane size,
+    # activation, alpha, stream
+    lib.rife_bias_act.argtypes = [vp, i, vp, vp, i, i, ctypes.c_longlong, i,
+                                  ctypes.c_float, vp]
+    lib.rife_bias_act.restype = i
     lib.rife_error_string.argtypes = [i]
     lib.rife_error_string.restype = ctypes.c_char_p
     return lib

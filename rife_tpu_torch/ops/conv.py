@@ -49,17 +49,27 @@ planar executor (the default for the v1/v2/v3 nets) sends to K11/K12.
 thresholds (ctx ``planar_min_hw`` / ``planar_deconv_min_hw`` override them,
 ``planar_all`` lifts them, as in ``planar_ops``).
 
+The library sites (every conv and deconv the kernels above do not take:
+``F.conv2d`` / ``F.conv_transpose2d``, cuDNN on the card) take their bias and
+activation on the card from ``bias_act`` (``rife_tpu_torch/csrc/bias_act.cu``):
+one in-place pass over the conv's output, in the XLA order, bit for bit with
+the library's bias add followed by ``torch_ops.apply_activation``
+(``epilogue_on_kernel``; the CPU keeps the library's bias and the eager
+activation).
+
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
 raises (nothing falls back to another kernel or to the twin).  ``LAUNCHES``
 counts kernel launches: ``conv3x3`` the conv kernels', ``conv3x3_ps`` B4's
 conv kernel's (and an f32 shuffled conv's), ``deconv4x4`` the deconv
-kernel's (both of its wrappers, every order and shuffle).
+kernel's (both of its wrappers, every order and shuffle), ``bias_act`` the
+epilogue kernel's.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -68,7 +78,7 @@ import torch.nn.functional as F
 from . import common as C
 from . import launch as L
 
-LAUNCHES = {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+LAUNCHES = {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0, "bias_act": 0}
 
 CONV_MIN_HW = 400_000
 DECONV_MIN_HW = 25_000
@@ -302,6 +312,13 @@ def activate_storage(y: torch.Tensor, act: int, alpha: float, slope):
     if act != ACT_NONE:
         raise ValueError(f"activation code {act}")
     return y
+
+
+@functools.lru_cache(maxsize=None)
+def _in_dtype(v: float, dtype: torch.dtype) -> float:
+    """``v`` rounded to ``dtype``: the leaky slope the kernels that keep
+    the XLA order multiply by."""
+    return float(torch.tensor(v, dtype=dtype))
 
 
 def deconv4x4_xla_ref(x, weight, bias=None, slope=None, *, act=ACT_NONE,
@@ -706,6 +723,79 @@ def deconv4x4_xla(x, weight_t4, bias=None, slope=None, *, act=ACT_NONE,
     if x.device.type == "cpu":
         return deconv_t4_ref(x, weight_t4, bias, slope, act=act, alpha=alpha,
                              ps=ps, xla=True)
-    alpha = float(torch.tensor(alpha, dtype=torch.bfloat16))
-    return _launch_deconv(x, weight_t4, bias, slope, act, alpha, ps,
-                          xla=True)
+    return _launch_deconv(x, weight_t4, bias, slope, act,
+                          _in_dtype(alpha, torch.bfloat16), ps, xla=True)
+
+
+# ---------------------------------------------------------------------------
+# the library sites' epilogue
+# ---------------------------------------------------------------------------
+
+def epilogue_on_kernel(device, act: int, has_bias: bool) -> bool:
+    """Whether a library conv site (``F.conv2d`` / ``F.conv_transpose2d``) of
+    a run on ``device``, with the fused activation ``act`` (``common``'s
+    code) and a bias or none, takes its epilogue from one ``bias_act``
+    launch: on the card, where the library adds the bias in a pass of its
+    own, for a bias or an activation the kernel takes.  Else the library's
+    bias and the eager activation stay (the CPU: oneDNN adds the bias
+    inside the conv, in f32)."""
+    return (torch.device(device).type == "cuda" and act in ACT_MAP
+            and (has_bias or act != C.ACT_NONE))
+
+
+def bias_act_ref(y, bias=None, slope=None, act=ACT_NONE, alpha=0.2):
+    """Twin of the epilogue kernel: the bias in ``y``'s dtype, then the
+    activation in it (``activate_storage``), out of place: what PyTorch's
+    bias add after the library conv and ``torch_ops.apply_activation``
+    compute.  ``bias`` / ``slope`` (C,) in any float dtype, rounded to
+    ``y``'s first."""
+    if bias is not None:
+        y = y + bias.to(y.dtype).reshape(1, -1, 1, 1)
+    return activate_storage(y, act, alpha, slope)
+
+
+def _check_bias_act(y, bias, slope, act):
+    if y.device.type != "cuda":
+        raise ValueError(f"the epilogue kernel takes CUDA tensors, got "
+                         f"{y.device}")
+    if y.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the epilogue kernel takes float32 or bfloat16, got "
+                        f"{y.dtype}")
+    if y.dim() != 4 or not y.is_contiguous() or y.numel() == 0:
+        raise ValueError(f"y must be contiguous non-empty (B,C,H,W), got "
+                         f"{tuple(y.shape)} strides {y.stride()}")
+    c = y.shape[1]
+    for what, t in (("bias", bias), ("slope", slope)):
+        if t is None:
+            continue
+        if (tuple(t.shape) != (c,) or t.dtype != torch.float32
+                or t.device != y.device or not t.is_contiguous()):
+            raise ValueError(f"{what} must be contiguous float32 ({c},) on "
+                             f"{y.device}, got {tuple(t.shape)} {t.dtype}")
+    if act == ACT_PRELU and slope is None:
+        raise ValueError("PReLU needs a slope")
+    if act not in (ACT_NONE, ACT_RELU, ACT_LEAKY, ACT_PRELU):
+        raise ValueError(f"activation code {act}")
+    if act == ACT_NONE and bias is None:
+        raise ValueError("nothing to apply: no bias and no activation")
+
+
+def bias_act(y, bias=None, slope=None, act=ACT_NONE, alpha=0.2):
+    """A library conv site's epilogue: ``y`` (B,C,H,W), the conv's output
+    without its bias, plus ``bias`` rounded to ``y``'s dtype, then the
+    activation (none, ReLU, leaky(``alpha`` rounded to that dtype) or
+    per-channel PReLU(``slope``)) in that dtype: ``bias_act_ref``'s bits.
+    ``bias`` / ``slope``: (C,) float32 holding values of ``y``'s dtype
+    (``torch_ops._entry``'s ``bias_q`` / ``slope_q``).  CUDA: one launch of
+    the epilogue kernel, which rewrites ``y`` in place and returns it; the
+    CPU: the twin."""
+    if y.device.type == "cpu":
+        return bias_act_ref(y, bias, slope, act, alpha)
+    _check_bias_act(y, bias, slope, act)
+    b, c, h, w = y.shape
+    L.launch("rife_bias_act", y.device, L.ptr(y),
+             int(y.dtype == torch.bfloat16), L.ptr(bias), L.ptr(slope), b * c,
+             c, ctypes.c_longlong(h * w), act,
+             ctypes.c_float(_in_dtype(alpha, y.dtype)))
+    LAUNCHES["bias_act"] += 1
+    return y

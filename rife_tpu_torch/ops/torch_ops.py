@@ -33,7 +33,10 @@ PixelShuffle form (B4, ``conv3x3_ps``) and a deconv site to ``deconv4x4``.
 In a bf16 run on the card every other 4x4 stride-2 pad-1 deconv site
 (``Deconvolution``, ``rife.DeconvPS``) takes the deconv kernel too, in XLA's
 rounding order (``ops/conv.py`` ``deconv_route``): cuDNN gave a window of
-rows, or another batch size, other bytes.  The
+rows, or another batch size, other bytes.  At every other site on the card
+the library conv runs without its bias and one pass of ``ops/conv.py``
+``bias_act`` applies the bias and the fused activation (``_library_site``),
+with the bits of the library's bias add and ``apply_activation``.  The
 warps dispatch into ``ops/warp.py``: the pair kernels for paired u8-origin
 warps, the fused warp + 1/2 downsample (K3) for ``rife.WarpDs2`` of a frame
 copy, the single-warp kernel for the rest (u8-origin mode K4, float mode
@@ -213,11 +216,6 @@ def _site_rows(x: torch.Tensor, ctx) -> int:
     return int(ctx.get("site_rows", x.shape[2]))
 
 
-def _conv_act(node, y, p):
-    act, params = C.activation_of(node)
-    return apply_activation(y, act, params, p.get("slope"))
-
-
 def _kernel_act(node):
     """(kernel activation code, leaky alpha) of a conv node; an activation
     the kernels do not take raises."""
@@ -236,6 +234,22 @@ def _conv_kernel(node, parts, p, stride, **kw):
                       act=act, alpha=alpha, weight_tc=p.get("weight_tc"), **kw)
 
 
+def _library_site(node, conv, x, p):
+    """A conv site on the library: ``conv(x, weight, bias)``
+    (``F.conv2d`` / ``F.conv_transpose2d`` with the site's hyperparameters),
+    then the fused activation.  Where ``ops/conv.py``
+    ``epilogue_on_kernel`` says so (the card) the conv runs without its bias
+    and one ``bias_act`` pass applies the bias and the activation, with the
+    bits of the library's bias add and ``apply_activation``."""
+    act, params = C.activation_of(node)
+    if not CV.epilogue_on_kernel(x.device, act, p["bias"] is not None):
+        return apply_activation(conv(x, p["weight"], p["bias"]), act, params,
+                                p.get("slope"))
+    alpha = float(params[0]) if act == C.ACT_LEAKY else 0.2
+    return CV.bias_act(conv(x, p["weight"], None), p.get("bias_q"),
+                       p.get("slope_q"), CV.ACT_MAP[act], alpha)
+
+
 def _op_convolution(node, inputs, w, ctx):
     _, _, dilation, stride, pad, _ = C.conv_hyperparams(node)
     p = ctx["w"][node.name]
@@ -244,9 +258,9 @@ def _op_convolution(node, inputs, w, ctx):
     if ctx.get("planar_convs") and CV.conv_wants_planar(
             node, _site_rows(x, ctx), x.shape[3], cin, cout, ctx):
         return [_conv_kernel(node, [x], p, stride)]
-    y = F.conv2d(x, p["weight"], p["bias"], stride=stride, padding=pad,
-                 dilation=dilation)
-    return [_conv_act(node, y, p)]
+    conv = functools.partial(F.conv2d, stride=stride, padding=pad,
+                             dilation=dilation)
+    return [_library_site(node, conv, x, p)]
 
 
 def _op_convolution_cat(node, inputs, w, ctx):
@@ -294,9 +308,9 @@ def _op_deconvolution(node, inputs, w, ctx):
     y = _deconv_site(node, x, p, ctx)
     if y is not None:
         return [y]
-    y = F.conv_transpose2d(x, p["weight"], p["bias"], stride=stride,
-                           padding=pad, dilation=dilation)
-    return [_conv_act(node, y, p)]
+    conv = functools.partial(F.conv_transpose2d, stride=stride, padding=pad,
+                             dilation=dilation)
+    return [_library_site(node, conv, x, p)]
 
 
 def _op_conv_ps(node, inputs, w, ctx):
@@ -678,13 +692,14 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
     and the per-channel ``slope_f32`` for the ``conv3x3`` sites (the
     planar kernels' form) and, for a 3x3 conv, ``weight_tc``, the weights
     packed once for the tensor-core kernel (``ops/conv.py``
-    ``pack_weight_tc``); for a 4x4 stride-2 pad-1 Deconvolution (or
-    ``rife.DeconvPS``) ``weight_t4``, the weights packed once for the
-    deconv kernel (``pack_weight_t4``), and ``bias_q`` / ``slope_q``, the
-    storage-dtype bias and slope as float32 (the kernel's XLA order reads
-    them); where the gates can send it to the planar route, also its phase
-    weights and the 4x tiled f32 bias and slope (``deconv_phase_weights``:
-    the twin's and the f32 kernel's form)."""
+    ``pack_weight_tc``); ``bias_q`` / ``slope_q``, the storage-dtype bias
+    and per-channel slope as float32 (what the kernels that keep the XLA
+    order read: the epilogue kernel ``bias_act`` and the deconv kernel);
+    for a 4x4 stride-2 pad-1 Deconvolution (or ``rife.DeconvPS``)
+    ``weight_t4``, the weights packed once for the deconv kernel
+    (``pack_weight_t4``); where the gates can send it to the planar route,
+    also its phase weights and the 4x tiled f32 bias and slope
+    (``deconv_phase_weights``: the twin's and the f32 kernel's form)."""
     out_ch = weight.shape[1] if node.type in _DECONV_KINDS else weight.shape[0]
     e = {"weight": _tensor(weight, dtype, device),
          "bias": _tensor(bias, dtype, device)}
@@ -699,12 +714,12 @@ def _entry(node, weight, bias, slope, dtype, device) -> Dict[str, torch.Tensor]:
         e["slope"] = _tensor(np.asarray(slope, np.float32).reshape(1, -1, 1, 1),
                              dtype, device)
         e["slope_f32"] = _tensor(slope_f32, torch.float32, device)
+    if bias is not None:
+        e["bias_q"] = e["bias"].float()
+    if slope is not None:
+        e["slope_q"] = e["slope_f32"].to(dtype).float()
     if node.type in _DECONV_KINDS and CV.is_deconv4x4(node):
         e["weight_t4"] = CV.pack_weight_t4(e["weight"])
-        if bias is not None:
-            e["bias_q"] = e["bias"].float()
-        if slope is not None:
-            e["slope_q"] = e["slope_f32"].to(dtype).float()
         _, k, _, stride, pad, _ = C.conv_hyperparams(node)
         if CV.planar_deconv_ok(weight.shape[0], out_ch, k, stride, pad):
             w3 = CV.deconv_phase_weights(torch.from_numpy(

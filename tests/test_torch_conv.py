@@ -171,7 +171,8 @@ def test_cpu_wrapper_takes_twin_without_counting():
                            act=CV.ACT_RELU)
     assert torch.equal(got, CV.deconv4x4_xla_ref(t[0], raw, torch.ones(5),
                                                  act=CV.ACT_RELU))
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0,
+                           "bias_act": 0}
 
 
 def test_non_cpu_tensors_never_take_the_twin():

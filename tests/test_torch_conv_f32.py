@@ -368,7 +368,8 @@ def test_f32_launch_hands_the_kernel_its_plan(monkeypatch, plan_lib, deconv):
     b, h, w, cout, stride = want
     assert kernel_plan(plan_lib, b, 10, cout, h, w, stride,
                        deconv) is not None
-    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0, "deconv4x4": 0,
+                           "bias_act": 0}
 
 
 class _Null:

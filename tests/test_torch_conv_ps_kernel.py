@@ -401,7 +401,8 @@ def test_wrapper_passes_the_geometry(calls, stride, w):
     assert args[13].value == pytest.approx(0.1)
     assert list(args[14:18]) == [geo.tile_rows, geo.stages, int(geo.tma_in),
                                  int(geo.tma_out)]
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 1, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 1, "deconv4x4": 0,
+                           "bias_act": 0}
 
 
 def test_wrapper_raises_on_what_the_kernel_does_not_take(calls):

@@ -451,7 +451,8 @@ def test_conv_kernel_matches_twin(cuda_device, parts, cout, stride, act, h,
                      weight_tc=packed)
     want = CV.conv3x3_ref(xs, weight, bias, slope, stride=stride, act=act)
     torch.cuda.synchronize()
-    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 1, "conv3x3_ps": 0, "deconv4x4": 0,
+                           "bias_act": 0}
     scale = CV.conv3x3_ref([x.float().abs() for x in xs],
                            weight.float().abs(), stride=stride)
     check(got, want, f32_rel=1e-5, scale=scale)
@@ -901,7 +902,8 @@ def test_failed_launch_raises(cuda_device):
                    weight_tc=CV.pack_weight_tc(w32))
     with pytest.raises(ValueError, match="weight_tc"):
         CV.conv3x3([torch.zeros(2, 1, 2, 2, device=cuda_device)], w32)
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0,
+                           "bias_act": 0}
     bf = dict(device=cuda_device, dtype=torch.bfloat16)
     w = torch.zeros(64, 512, 3, 3, **bf)
     with pytest.raises(RuntimeError, match="CUDA error"):
@@ -909,7 +911,8 @@ def test_failed_launch_raises(cuda_device):
                    weight_tc=CV.pack_weight_tc(w))
     with pytest.raises(ValueError, match="weight_tc"):
         CV.conv3x3([torch.zeros(1, 512, 8, 8, **bf)], w)
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0,
+                           "bias_act": 0}
     # the deconv kernel: bf16 only (f32 keeps its routes), its activations,
     # a PixelShuffle of 2 and whole 2x2 blocks, the packed weights
     raw = torch.zeros(8, 6, 4, 4, **bf)
@@ -924,7 +927,8 @@ def test_failed_launch_raises(cuda_device):
         CV.deconv4x4(x, None, weight_t4=None)
     with pytest.raises(ValueError, match="slope"):
         CV.deconv4x4_xla(x, CV.pack_weight_t4(raw), act=CV.ACT_PRELU)
-    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0}
+    assert CV.LAUNCHES == {"conv3x3": 0, "conv3x3_ps": 0, "deconv4x4": 0,
+                           "bias_act": 0}
     # S: rows outside the source, a 1/4 warp of rows not divisible by 4
     W.reset_launches()
     img = torch.zeros(1, 3, 16, 16, **bf)
@@ -1042,7 +1046,8 @@ def test_uhd_f32_matches_cpu(cuda_device, v23_dir, monkeypatch):
         counts = {k: v for k, v in {**W.LAUNCHES, **CV.LAUNCHES}.items()
                   if v}
         assert counts == kernel_sites(sess, 50, 110)
-        assert set(counts) == {"warp_feat", "warp_u8", "conv3x3"}
+        assert set(counts) == {"warp_feat", "warp_u8", "conv3x3",
+                               "bias_act"}
         diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
         assert diff.max() <= 1 and (diff == 0).mean() >= 0.999
 

@@ -111,11 +111,12 @@ def warp_calls(dtype):
 
 
 def conv_calls(dtype):
-    """(counter, C function, thunk) for conv3x3 (one and three parts) and
-    deconv4x4, each also in its PixelShuffle form (B4, ``conv3x3_ps``), and
-    in bf16 deconv4x4_xla: a bf16 deconv launches the deconv kernel, an f32
-    one the f32 conv kernel's deconv mode; a bf16 shuffled conv B4's conv
-    kernel, an f32 one the f32 conv kernel."""
+    """(counter, C function, thunk) for the library sites' epilogue
+    (``bias_act``), conv3x3 (one and three parts) and deconv4x4, each also
+    in its PixelShuffle form (B4, ``conv3x3_ps``), and in bf16
+    deconv4x4_xla: a bf16 deconv launches the deconv kernel, an f32 one the
+    f32 conv kernel's deconv mode; a bf16 shuffled conv B4's conv kernel,
+    an f32 one the f32 conv kernel."""
     bf16 = dtype == torch.bfloat16
     c_fn = "rife_conv3x3_tc" if bf16 else "rife_conv3x3"
     d_fn = "rife_deconv4x4" if bf16 else c_fn
@@ -127,6 +128,8 @@ def conv_calls(dtype):
                      for r in (raw6, raw8))
     t4, t48 = (CV.pack_weight_t4(r).as_subclass(OnCard) for r in (raw6, raw8))
     calls = [
+        ("bias_act", "rife_bias_act", lambda: CV.bias_act(
+            on_card(2, 16, 8, 12, dtype=dtype), bias, slope, CV.ACT_PRELU)),
         ("conv3x3", c_fn, lambda: CV.conv3x3(
             parts, weight, bias, slope, stride=2, act=CV.ACT_PRELU,
             weight_tc=CV.pack_weight_tc(weight))),

@@ -21,8 +21,13 @@ as tools/warp_ab.py does) and times, in the order old, new, new, old (bf16):
   for bit, and the sums over each step, each site times its launches;
 * ``warp_spatial`` at a quarter of the rows (u8 C=3 of 1088x1920 B=2,
   float C=32 of 544x960 B=2), bit for bit;
-* whole steps, host clock around synchronised steps after a warm-up, as
-  ``chip_smoke.py`` phase 11 times them: v4.6, v2.3 and v1 at 1080p B=8,
+* whole steps on the same seeded frames, each checkout's output equal to
+  the other's bit for bit, and the host clock around synchronised steps
+  after a warm-up, as ``chip_smoke.py`` phase 11 times them: bf16 v4.6,
+  v2.3 and v1 at 1080p B=8, v4.6 ``-x -z`` at 1080p B=2, v2.3 ``-u`` at
+  4K B=2, f32 v2.3 at 1080p B=2 (TF32 off, and
+  ``torch.backends.cudnn.deterministic`` on: without it cuDNN's f32
+  algorithms give one checkout's own runs other bits from run to run),
   and the height-sharded cases of phase 11 (v4.6 1x4 B=2, v2.3 ``-u`` 4K
   1x4 B=1, v1 1x4 B=1, v4.6 2x2 B=4, each over four shards of cuda:0).
 
@@ -30,6 +35,7 @@ Every number goes to ``--out`` with the card's name and power limit.  Run
 from the repository root on one GPU, against the parent commit unpacked
 (``git archive``) into a directory that .gitignore lists:
     python tools/step_ab.py --old <checkout> [--new <checkout>] [--out PATH]
+        [--skip-steps | --steps-only]
 """
 
 from __future__ import annotations
@@ -48,13 +54,19 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from warp_ab import card_line, load_package, time_ms  # noqa: E402
 
-STEPS = [("v4.6", {}, (1, 1), (8, 1080, 1920)),
-         ("v2.3", {}, (1, 1), (8, 1080, 1920)),
-         ("v1", {}, (1, 1), (8, 1080, 1920)),
-         ("v4.6", {}, (1, 4), (2, 1080, 1920)),
-         ("v2.3", {"uhd_mode": True}, (1, 4), (1, 2160, 3840)),
-         ("v1", {}, (1, 4), (1, 1080, 1920)),
-         ("v4.6", {}, (2, 2), (4, 1080, 1920))]
+BF16, F32 = torch.bfloat16, torch.float32
+TTA = {"tta_mode": True, "tta_temporal_mode": True}
+UHD = {"uhd_mode": True}
+STEPS = [("v4.6", {}, (1, 1), (8, 1080, 1920), BF16),
+         ("v2.3", {}, (1, 1), (8, 1080, 1920), BF16),
+         ("v1", {}, (1, 1), (8, 1080, 1920), BF16),
+         ("v4.6", TTA, (1, 1), (2, 1080, 1920), BF16),
+         ("v2.3", UHD, (1, 1), (2, 2160, 3840), BF16),
+         ("v2.3", {}, (1, 1), (2, 1080, 1920), F32),
+         ("v4.6", {}, (1, 4), (2, 1080, 1920), BF16),
+         ("v2.3", UHD, (1, 4), (1, 2160, 3840), BF16),
+         ("v1", {}, (1, 4), (1, 1080, 1920), BF16),
+         ("v4.6", {}, (2, 2), (4, 1080, 1920), BF16)]
 
 
 def in_turns(fns, iters=10):
@@ -258,7 +270,8 @@ def step_ms(fn, steps=3) -> float:
 
 
 def steps(pkgs, dirs, device, rec):
-    for model, modes, (nd, ns), (b, h, w) in STEPS:
+    for model, modes, (nd, ns), (b, h, w), dtype in STEPS:
+        torch.backends.cudnn.deterministic = dtype == F32
         rng = np.random.default_rng(3)
         f0 = torch.from_numpy(rng.integers(0, 256, (b, h, w, 3),
                                            np.uint8)).to(device)
@@ -266,24 +279,29 @@ def steps(pkgs, dirs, device, rec):
         ts = np.full(b, 0.5, np.float32)
         runners = {}
         for side, pkg in pkgs.items():
-            sess = pkg.RIFE(str(dirs[model]), device=device, **modes)
+            sess = pkg.RIFE(str(dirs[model]), device=device, dtype=dtype,
+                            **modes)
             if nd * ns > 1:
                 S = pkg.parallel.sharding
                 sess = S.ShardedRIFE(sess, S.make_mesh_2d(
                     nd, ns, [device] * (nd * ns)), height_axis="spatial")
             runners[side] = sess
-        label = (f"{model}{' -u' if modes else ''} {h}x{w} B={b}"
+        label = (f"{model}{' -x -z' * (modes is TTA)}{' -u' * (modes is UHD)}"
+                 f" {h}x{w} B={b} {str(dtype)[6:]}"
                  + (f" mesh {nd}x{ns}" if nd * ns > 1 else ""))
+        require_equal({side: (lambda r=r: r.process_batch_device(f0, f1, ts))
+                       for side, r in runners.items()}, f"step {label}")
         got = {"old": [], "new": []}
         for side in ("old", "new", "new", "old"):
             r = runners[side]
             got[side].append(step_ms(
                 lambda r=r: r.process_batch_device(f0, f1, ts)))
         rec[f"step {label}"] = got
-        print(f"step {label}: host ms a step (synchronised) {got}",
-              flush=True)
+        print(f"step {label}: bit for bit; host ms a step (synchronised) "
+              f"{got}", flush=True)
         del runners
         torch.cuda.empty_cache()
+    torch.backends.cudnn.deterministic = False
 
 
 def main() -> int:
@@ -292,6 +310,7 @@ def main() -> int:
     ap.add_argument("--new", type=Path, default=ROOT)
     ap.add_argument("--out", type=Path)
     ap.add_argument("--skip-steps", action="store_true")
+    ap.add_argument("--steps-only", action="store_true")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs an NVIDIA GPU", file=sys.stderr)
@@ -318,10 +337,11 @@ def main() -> int:
     card = card_line()
     print(f"card: {card}; {torch.cuda.get_device_name(0)}", flush=True)
     rec = {"card": card}
-    deconv_sites(pkgs, dirs, device, rec)
-    conv_sites(pkgs, dirs, device, rec)
-    head_and_spatial(pkgs, device, rec)
-    f32_sites(pkgs, dirs, device, rec)
+    if not args.steps_only:
+        deconv_sites(pkgs, dirs, device, rec)
+        conv_sites(pkgs, dirs, device, rec)
+        head_and_spatial(pkgs, device, rec)
+        f32_sites(pkgs, dirs, device, rec)
     if not args.skip_steps:
         steps(pkgs, dirs, device, rec)
     del new

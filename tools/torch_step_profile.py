@@ -14,7 +14,15 @@ profiles the same steps once more with every graph node under a
 device time per layer kind: the labels cost host time, so that run's wall
 time is not the step's, and only kernels that PyTorch launches are
 attributed (the ``csrc/`` kernels, launched through ctypes, are not: read
-them in the kernel table).  ``--mesh DxS`` runs the step through
+them in the kernel table).  The same run puts the ``ops/torch_ops.py``
+helpers that launch eager ops (``HELPERS``) under labels of their own and
+ties each kernel to the host op that launched it (the profiler's linked
+correlation id: the innermost aten op) and to the innermost helper and
+layer kind around that op on its thread; it prints the kernels a step and
+the device time a step of each (kernel, aten op, helper, layer kind), the
+kernel under the name the benchmark's ledger gives it (64 characters, each
+outside [A-Za-z0-9_:.-] as ``_``), so that a ledger ``breakdown`` row can
+be looked up.  ``--mesh DxS`` runs the step through
 ``parallel/sharding.py``'s ``ShardedRIFE`` over a D x S mesh of cuda:0
 named D*S times (batch sharding over D, height sharding over S when S > 1),
 the cost of the sharded paths' halos, gathers and extra launches on one
@@ -29,8 +37,11 @@ Run: python tools/torch_step_profile.py [B] [STEPS] [--model v4.6|v2.3|v1]
 from __future__ import annotations
 
 import argparse
+import bisect
+import re
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -38,6 +49,9 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+HELPERS = ("apply_activation", "_upsample_axis", "_downsample_axis",
+           "resize_nearest", "sigmoid")
 
 
 def busy_us(kineto_events) -> float:
@@ -128,10 +142,10 @@ def main() -> int:
                 step.process_batch_device(f0, f1, ts)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-        return (prof.key_averages(), wall,
-                busy_us(prof.profiler.kineto_results.events()))
+        kineto = prof.profiler.kineto_results.events()
+        return prof.key_averages(), wall, busy_us(kineto), kineto
 
-    events, wall, union_us = run_steps()
+    events, wall, union_us, _ = run_steps()
     dev = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_us = sum(e.self_device_time_total for e in dev)
     step_ms = wall / args.steps * 1e3
@@ -160,8 +174,12 @@ def main() -> int:
 
 def by_op(sess, run_steps, steps, kernel_us):
     """Profile the steps with every node under ``record_function("op::<layer
-    kind>")`` and print the device time under each label, a step's."""
+    kind>")`` and each of ``HELPERS`` under ``"fn::<name>"``; print the
+    device time under each layer kind, a step's, then ``attribute``'s
+    table."""
     from torch.profiler import record_function
+
+    from rife_tpu_torch.ops import torch_ops as T
 
     def labelled(kind, fn):
         def op(node, inputs, w, ctx):
@@ -173,15 +191,26 @@ def by_op(sess, run_steps, steps, kernel_us):
                 return fn(node, inputs, w, ctx)
         return op
 
+    def helper(name, fn):
+        def call(*args, **kw):
+            with record_function(f"fn::{name}"):
+                return fn(*args, **kw)
+        return call
+
     tables = {}
     for name, ex in sess.executors.items():
         tables[name] = ex.op_table
         ex.op_table = {k: labelled(k, fn) for k, fn in ex.op_table.items()}
+    saved = {h: getattr(T, h) for h in HELPERS}
+    for h, fn in saved.items():
+        setattr(T, h, helper(h, fn))
     try:
-        events = run_steps()[0]
+        events, _, _, kineto = run_steps()
     finally:
         for name, ex in sess.executors.items():
             ex.op_table = tables[name]
+        for h, fn in saved.items():
+            setattr(T, h, fn)
     # the host-side ranges: their device time is that of the kernels
     # launched inside them (each range also appears as a device-side
     # annotation, which is left out)
@@ -196,6 +225,65 @@ def by_op(sess, run_steps, steps, kernel_us):
         print(f"{e.device_time_total / 1e3 / steps:9.3f} ms/step "
               f"{100 * e.device_time_total / kernel_us:5.1f}%  "
               f"x{e.count // steps:<5d} {e.key[4:]}")
+
+    table, per_step = attribute(kineto, steps)
+    print(f"by (kernel, aten op, helper, layer kind): {per_step:.1f} "
+          f"kernels a step")
+    rows = sorted(table.items(), key=lambda kv: -kv[1][0])
+    for (kernel, op, fn, node), (us, n) in rows[:40]:
+        print(f"{us / 1e3:9.3f} ms/step x{n / steps:<6.1f} {op:<24s} "
+              f"{fn:<18s} {node:<16s} {ledger_key(kernel)}")
+
+
+def ledger_key(name: str) -> str:
+    """A kernel's name as the benchmark's ledger writes it."""
+    return re.sub(r"[^A-Za-z0-9_:.-]", "_", name)[:64]
+
+
+def attribute(events, steps):
+    """({(kernel, aten op, helper, layer kind): [device us a step,
+    launches]}, kernels a step) from kineto events labelled by ``by_op``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    host, kernels = {}, []
+    labels = defaultdict(list)  # thread -> [(start, end, name)]
+    for e in events:
+        if e.device_type() == cuda:
+            if not (e.is_user_annotation() or "Memcpy" in e.name()
+                    or "Memset" in e.name()):
+                kernels.append(e)
+            continue
+        host[e.correlation_id()] = e
+        if e.name().startswith(("fn::", "op::")):
+            labels[e.start_thread_id()].append(
+                (e.start_ns(), e.start_ns() + e.duration_ns(), e.name()))
+    for lst in labels.values():
+        lst.sort()
+    starts = {t: [s for s, _, _ in lst] for t, lst in labels.items()}
+
+    def around(ev):
+        t, at = ev.start_thread_id(), ev.start_ns()
+        lst = labels.get(t, [])
+        i = bisect.bisect_right(starts.get(t, []), at)
+        fn = node = "-"
+        for s, e, name in reversed(lst[max(0, i - 64):i]):
+            if s <= at <= e:
+                if name.startswith("fn::") and fn == "-":
+                    fn = name[4:]
+                if name.startswith("op::") and node == "-":
+                    node = name[4:]
+        return fn, node
+
+    table = defaultdict(lambda: [0.0, 0])
+    for k in kernels:
+        src = host.get(k.linked_correlation_id())
+        op, fn, node = "-", "-", "-"
+        if src is not None:
+            op = src.name()
+            fn, node = around(src)
+        row = table[(k.name(), op, fn, node)]
+        row[0] += k.duration_ns() / 1e3 / steps
+        row[1] += 1
+    return table, len(kernels) / steps
 
 
 if __name__ == "__main__":
