@@ -58,11 +58,16 @@ the library's bias add followed by ``torch_ops.apply_activation``
 activation).
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
-raises (nothing falls back to another kernel or to the twin).  ``LAUNCHES``
-counts kernel launches: ``conv3x3`` the conv kernels', ``conv3x3_ps`` B4's
-conv kernel's (and an f32 shuffled conv's), ``deconv4x4`` the deconv
-kernel's (both of its wrappers, every order and shuffle), ``bias_act`` the
-epilogue kernel's.
+raises (nothing falls back to another kernel or to the twin); a meta tensor
+takes the kernel's branch and launches nothing (``ops/launch.py``).
+``LAUNCHES`` counts kernel launches: ``conv3x3`` the conv kernels',
+``conv3x3_ps`` B4's conv kernel's (and an f32 shuffled conv's),
+``deconv4x4`` the deconv kernel's (both of its wrappers, every order and
+shuffle), ``bias_act`` the epilogue kernel's.  Each conv launch gives the
+plan its site: (batch, part channels, cout, stride, activation code, H, W,
+deconv) for ``conv3x3`` / ``conv3x3_ps`` (a deconv site's cout counts its
+four output phases), (batch, (cin,), O, PixelShuffle factor, activation
+code, H, W, XLA order) for ``deconv4x4``.
 """
 
 from __future__ import annotations
@@ -161,7 +166,7 @@ def deconv_on_kernel(device, dtype) -> bool:
     ``dtype`` take the deconv kernel: bf16 on the card.  f32 runs keep the
     routes that meet the f32 bar (the planar sites the f32 conv kernel's
     deconv mode, the others cuDNN with TF32 off), and the CPU its twins."""
-    return torch.device(device).type == "cuda" and dtype == torch.bfloat16
+    return L.on_card(device) and dtype == torch.bfloat16
 
 
 def deconv_route(node, h, w, cin, cout, ctx, device, dtype) -> str:
@@ -394,7 +399,7 @@ def _check(parts, weight, bias, slope, stride, act, weight_tc=None,
     """Validate a launch's operands (``packed``: it reads ``weight_tc``);
     returns (B, H, W, Cout)."""
     ref = parts[0]
-    if ref.device.type != "cuda":
+    if ref.device.type not in ("cuda", "meta"):
         raise ValueError(f"conv3x3 takes CUDA or CPU tensors, got {ref.device}")
     if ref.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv3x3 takes float32 or bfloat16, got {ref.dtype}")
@@ -462,7 +467,8 @@ def _launch(parts, weight, bias, slope, out, stride, act, alpha, weight_tc,
         L.launch("rife_conv3x3_tc", device, *common)
     else:
         L.launch("rife_conv3x3", device, *common, 0)
-    LAUNCHES["conv3x3_ps" if ps > 1 else "conv3x3"] += 1
+    L.count(LAUNCHES, "conv3x3_ps" if ps > 1 else "conv3x3",
+            (b, tuple(chans[:len(parts)]), cout, stride, act, h, w, False))
 
 
 def _check_ps(ps, channels):
@@ -570,7 +576,8 @@ def _launch_ps(parts, weight, weight_tc, bias, slope, stride, act, alpha,
              L.ptr(weight_tc), weight_tc.shape[2], L.ptr(bias), L.ptr(slope),
              L.ptr(out), b, h, w, cout, stride, act, ctypes.c_float(alpha),
              geo.tile_rows, geo.stages, int(geo.tma_in), int(geo.tma_out))
-    LAUNCHES["conv3x3_ps"] += 1
+    L.count(LAUNCHES, "conv3x3_ps",
+            (b, (x.shape[1],), cout, stride, act, h, w, False))
     return out
 
 
@@ -604,7 +611,7 @@ def conv3x3(parts, weight, bias=None, slope=None, *, stride=1, act=ACT_NONE,
 
 def _check_deconv(x, weight_t4, bias, slope, act, ps):
     """Validate the deconv kernel's operands; returns (B, H, W, O)."""
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "meta"):
         raise ValueError(f"the deconv kernel takes CUDA tensors, got "
                          f"{x.device}")
     if x.dtype != torch.bfloat16:
@@ -650,7 +657,8 @@ def _launch_deconv(x, weight_t4, bias, slope, act, alpha, ps, xla):
              L.ptr(weight_t4), weight_t4.shape[2], L.ptr(bias), L.ptr(slope),
              L.ptr(out), b, h, w, cout, act, ctypes.c_float(alpha), ps,
              int(xla))
-    LAUNCHES["deconv4x4"] += 1
+    L.count(LAUNCHES, "deconv4x4",
+            (b, (x.shape[1],), cout, ps, act, h, w, xla))
     return out
 
 
@@ -661,19 +669,20 @@ def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
     (B, O, 2H, 2W); with ``ps`` = 2 (B4, ``rife.DeconvPS``) its
     PixelShuffle(2), (B, O/4, 4H, 4W).  ``phase_bias`` / ``phase_slope``:
     the deconv's (O,) float32 values tiled 4x, as the phase conv takes
-    them.  CUDA bf16: one launch of the deconv kernel over ``weight_t4``
-    (``pack_weight_t4``; it reads the first O values of the bias and
-    slope); CUDA f32: one launch of the f32 kernel's deconv mode over
-    ``weight_t4`` (``_launch_deconv_f32``).  The CPU: ``conv3x3``'s twin
-    over the phase weights (``deconv_phase_weights``), then
-    ``interleave_phases`` (and ``F.pixel_shuffle``): what ``deconv4x4_ref``
-    computes."""
+    them.  Where ``deconv_on_kernel`` (CUDA bf16): one launch of the deconv
+    kernel over ``weight_t4`` (``pack_weight_t4``; it reads the first O
+    values of the bias and slope); else (CUDA f32, or a plan's meta tensors
+    standing for the CPU): one launch of the f32 kernel's deconv mode over
+    ``weight_t4`` (``_launch_deconv_f32``, counted as the CPU's phase
+    conv).  The CPU: ``conv3x3``'s twin over the phase weights
+    (``deconv_phase_weights``), then ``interleave_phases`` (and
+    ``F.pixel_shuffle``): what ``deconv4x4_ref`` computes."""
     if x.device.type == "cpu":
         y = interleave_phases(conv3x3([x], phase_weight, phase_bias,
                                       phase_slope, stride=1, act=act,
                                       alpha=alpha))
         return F.pixel_shuffle(y, ps) if ps > 1 else y
-    if x.dtype == torch.bfloat16:
+    if deconv_on_kernel(x.device, x.dtype):
         return _launch_deconv(x, weight_t4, phase_bias, phase_slope, act,
                               alpha, ps, xla=False)
     return _launch_deconv_f32(x, phase_weight, phase_bias, phase_slope, act,
@@ -682,11 +691,11 @@ def deconv4x4(x, phase_weight, phase_bias=None, phase_slope=None, *,
 
 def _launch_deconv_f32(x, phase_weight, phase_bias, phase_slope, act, alpha,
                        weight_t4, ps):
-    """A planar deconv site in f32 on the card: one launch of the f32 kernel
-    in its deconv mode over ``weight_t4``, which writes the interleaved (B,
-    O, 2H, 2W) output; with ``ps`` = 2 then ``F.pixel_shuffle``.  Counts as
-    ``conv3x3`` (``conv3x3_ps`` with ``ps`` = 2), as the phase conv it
-    replaced did."""
+    """A planar deconv site in f32 on the card (on meta, any planar site off
+    the deconv kernel): one launch of the f32 kernel in its deconv mode over
+    ``weight_t4``, which writes the interleaved (B, O, 2H, 2W) output; with
+    ``ps`` = 2 then ``F.pixel_shuffle``.  Counts as ``conv3x3``
+    (``conv3x3_ps`` with ``ps`` = 2), as the phase conv it replaced did."""
     b, h, w, cout = _check([x], phase_weight, phase_bias, phase_slope, 1,
                            act, packed=False)
     if cout % 4:
@@ -707,7 +716,8 @@ def _launch_deconv_f32(x, phase_weight, phase_bias, phase_slope, act, alpha,
              0, 0, L.ptr(weight_t4), weight_t4.shape[2], L.ptr(phase_bias),
              L.ptr(phase_slope), L.ptr(y), b, h, w, o, 1, act,
              ctypes.c_float(alpha), 1)
-    LAUNCHES["conv3x3_ps" if ps > 1 else "conv3x3"] += 1
+    L.count(LAUNCHES, "conv3x3_ps" if ps > 1 else "conv3x3",
+            (b, (cin,), cout, 1, act, h, w, True))
     return F.pixel_shuffle(y, ps) if ps > 1 else y
 
 
@@ -739,7 +749,7 @@ def epilogue_on_kernel(device, act: int, has_bias: bool) -> bool:
     own, for a bias or an activation the kernel takes.  Else the library's
     bias and the eager activation stay (the CPU: oneDNN adds the bias
     inside the conv, in f32)."""
-    return (torch.device(device).type == "cuda" and act in ACT_MAP
+    return (L.on_card(device) and act in ACT_MAP
             and (has_bias or act != C.ACT_NONE))
 
 
@@ -755,7 +765,7 @@ def bias_act_ref(y, bias=None, slope=None, act=ACT_NONE, alpha=0.2):
 
 
 def _check_bias_act(y, bias, slope, act):
-    if y.device.type != "cuda":
+    if y.device.type not in ("cuda", "meta"):
         raise ValueError(f"the epilogue kernel takes CUDA tensors, got "
                          f"{y.device}")
     if y.dtype not in (torch.float32, torch.bfloat16):
@@ -797,5 +807,5 @@ def bias_act(y, bias=None, slope=None, act=ACT_NONE, alpha=0.2):
              int(y.dtype == torch.bfloat16), L.ptr(bias), L.ptr(slope), b * c,
              c, ctypes.c_longlong(h * w), act,
              ctypes.c_float(_in_dtype(alpha, y.dtype)))
-    LAUNCHES["bias_act"] += 1
+    L.count(LAUNCHES, "bias_act")
     return y

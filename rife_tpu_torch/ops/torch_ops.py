@@ -756,32 +756,10 @@ def prepare_weights(graph, raw, dtype=torch.float32, device="cpu"):
     return out
 
 
-def weights_from_jax(graph, tree, dtype=torch.float32, device="cpu"):
-    """The JAX package's prepared weights (``jax_ops.prepare_weights``, as
-    numpy arrays) -> this module's: HWIO convs become OIHW, the spatially
-    flipped HWIO deconvs become ncnn's (I,O,kh,kw), an InnerProduct's
-    (in, out) ``dense`` becomes (out, in)."""
-    out = {}
-    for node in graph.nodes:
-        e = tree.get(node.name)
-        if e is None:
-            continue
-        if node.type == "PReLU":
-            out[node.name] = {"slope": _tensor(e["slope"], dtype, device)}
-            continue
-        if node.type == "InnerProduct":
-            out[node.name] = {
-                "weight": _tensor(np.asarray(e["dense"], np.float32).T,
-                                  dtype, device),
-                "bias": _tensor(e["bias"], dtype, device)}
-            continue
-        if node.type not in _CONV_KINDS + _DECONV_KINDS:
-            continue
-        hwio = np.asarray(e["hwio"], np.float32)
-        if node.type in _CONV_KINDS:
-            weight = hwio.transpose(3, 2, 0, 1)
-        else:
-            weight = hwio[::-1, ::-1].transpose(2, 3, 0, 1)
-        out[node.name] = _entry(node, weight, e["bias"], e.get("slope"),
-                                dtype, device)
-    return out
+def weights_on(weights, device):
+    """A session's prepared weights ({net: {node: {name: tensor}}}) on
+    ``device``."""
+    return {net: {node: {k: None if t is None else t.to(device)
+                         for k, t in entry.items()}
+                  for node, entry in nodes.items()}
+            for net, nodes in weights.items()}

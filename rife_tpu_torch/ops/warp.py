@@ -59,7 +59,8 @@ float32 ``(sx, sy)``; ``warp_render`` takes the mask as (B,H,W) and writes
 (B,H,3,W) planes for ``frame.postprocess_planar``.
 
 Dispatch: a CPU tensor takes the twin; a CUDA tensor launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches per wrapper.
+raises; a meta tensor takes the kernel's branch and launches nothing
+(``ops/launch.py``).  ``LAUNCHES`` counts kernel launches per wrapper.
 
 The kernels but ``warp_ds4_pair``, ``warp_ds2`` and ``warp_spatial`` take
 their tiles (and ``warp_feat`` its channel groups) from the module
@@ -268,7 +269,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 def _check(imgs, flows, mask=None):
     """Validate the kernel's operands; returns (B, H, W, dtype code)."""
     ref = imgs[0]
-    if ref.device.type != "cuda":
+    if ref.device.type not in ("cuda", "meta"):
         raise ValueError(f"warp kernels take CUDA or CPU tensors, got "
                          f"{ref.device}")
     if ref.dtype not in _DTYPE_CODE:
@@ -305,7 +306,7 @@ def warp_pair(img_a, flow_a, img_b, flow_b):
     out_b = torch.empty_like(img_b)
     _launch("rife_warp_pair", [img_a, flow_a, img_b, flow_b, out_a, out_b],
             (b, h, w, code, TILE_W, TILE_H), img_a.device)
-    LAUNCHES["warp_pair"] += 1
+    L.count(LAUNCHES, "warp_pair")
     return out_a, out_b
 
 
@@ -318,7 +319,7 @@ def warp_render(img_m, flow_m, img_i, flow_i, mask):
     out = img_m.new_empty((b, h, 3, w))
     _launch("rife_warp_render", [img_m, flow_m, img_i, flow_i, mask, out],
             (b, h, w, code, TILE_W, TILE_H), img_m.device)
-    LAUNCHES["warp_render"] += 1
+    L.count(LAUNCHES, "warp_render")
     return out
 
 
@@ -336,7 +337,7 @@ def warp_ds4_pair(img_a, flow_a, img_b, flow_b):
     out_b = img_b.new_empty(shape)
     _launch("rife_warp_ds4_pair", [img_a, flow_a, img_b, flow_b, out_a, out_b],
             (b, h, w, code), img_a.device)
-    LAUNCHES["warp_ds4_pair"] += 1
+    L.count(LAUNCHES, "warp_ds4_pair")
     return out_a, out_b
 
 
@@ -350,14 +351,14 @@ def warp_ds2(img, flow):
         raise ValueError(f"warp_ds2 needs even H and W, got {h}x{w}")
     out = img.new_empty((b, 3, h // 2, w // 2))
     _launch("rife_warp_ds2", [img, flow, out], (b, h, w, code), img.device)
-    LAUNCHES["warp_ds2"] += 1
+    L.count(LAUNCHES, "warp_ds2")
     return out
 
 
 def _check_single(img, pos, abs_pos: bool):
     """Validate the single-warp kernel's operands; returns (B,C,H,W,Ho,Wo,
     dtype code)."""
-    if img.device.type != "cuda":
+    if img.device.type not in ("cuda", "meta"):
         raise ValueError(f"warp kernels take CUDA or CPU tensors, got "
                          f"{img.device}")
     if img.dtype not in _DTYPE_CODE:
@@ -401,7 +402,7 @@ def _warp_single(name: str, img, pos, abs_pos: bool, u8: bool):
     _launch("rife_warp_single", [img, pos, out],
             (b, c, h, w, ho, wo, int(abs_pos), int(u8), code, *tile, group),
             img.device)
-    LAUNCHES[name] += 1
+    L.count(LAUNCHES, name)
     return out
 
 
@@ -464,5 +465,5 @@ def warp_spatial(full, flow, row0: int, *, u8: bool, ds4: bool = False):
     _launch("rife_warp_spatial", [full, flow, out],
             (b, c, h, w, rows, row0, int(u8), int(ds4),
              _DTYPE_CODE[full.dtype], group), full.device)
-    LAUNCHES["warp_spatial"] += 1
+    L.count(LAUNCHES, "warp_spatial")
     return out

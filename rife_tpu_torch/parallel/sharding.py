@@ -37,6 +37,7 @@ import torch
 
 from ..engine import plan
 from ..graph.spatial import SpatialExecutor
+from ..ops.torch_ops import weights_on
 
 
 def _canonical(device) -> torch.device:
@@ -93,15 +94,6 @@ def make_mesh_2d(n_data: int, n_spatial: int,
                  for i in range(n_data)])
 
 
-def _weights_on(weights, device):
-    """A session's prepared weights ({net: {node: {name: tensor}}}) on
-    ``device``."""
-    return {net: {node: {k: None if t is None else t.to(device)
-                         for k, t in entry.items()}
-                  for node, entry in nodes.items()}
-            for net, nodes in weights.items()}
-
-
 class ShardedRIFE:
     """A ``RIFE`` session run over a ``Mesh``: ``batch_axis`` names the axis
     that cuts the batch (or None), ``height_axis`` the one that cuts the
@@ -133,7 +125,7 @@ class ShardedRIFE:
         self.weights = {_canonical(session.device): session.weights}
         for d in mesh.flat():
             if d not in self.weights:
-                self.weights[d] = _weights_on(session.weights, d)
+                self.weights[d] = weights_on(session.weights, d)
         self.executors = []
         for row in grid:
             if height_axis is None:

@@ -29,6 +29,8 @@ from rife_tpu.ops import common as C
 from rife_tpu.ops import conv_planar as CP
 from rife_tpu.ops import planar_ops as P
 from rife_tpu_torch.ops import conv as CV
+from rife_tpu_torch.ops import launch as L
+from torch_other_device import elsewhere
 
 ACTS = [CV.ACT_NONE, CV.ACT_RELU, CV.ACT_LEAKY, CV.ACT_PRELU]
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
@@ -175,10 +177,24 @@ def test_cpu_wrapper_takes_twin_without_counting():
                            "bias_act": 0}
 
 
-def test_non_cpu_tensors_never_take_the_twin():
+def test_non_cpu_tensors_never_take_the_twin(monkeypatch):
+    """Only a CPU tensor takes the twin: a plan's meta tensors take the
+    kernel's branch (checks, output, count) and launch nothing; any other
+    device raises there rather than fall back."""
+    def twin(*args, **kw):
+        raise AssertionError("the twin ran off the CPU")
+
+    monkeypatch.setattr(CV, "conv3x3_ref", twin)
     meta = [torch.empty(1, 4, 8, 8, device="meta")]
+    weight = torch.empty(2, 4, 3, 3, device="meta")
+    with L.planning("cuda") as calls:
+        out = CV.conv3x3(meta, weight, weight_tc=CV.pack_weight_tc(weight))
+        with pytest.raises(ValueError, match="weight_tc"):
+            CV.conv3x3(meta, weight)
+    assert calls == [("conv3x3", (1, (4,), 2, 1, CV.ACT_NONE, 8, 8, False))]
+    assert out.device.type == "meta" and out.shape == (1, 2, 8, 8)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        CV.conv3x3(meta, torch.empty(2, 4, 3, 3, device="meta"))
+        CV.conv3x3([elsewhere(1, 4, 8, 8)], elsewhere(2, 4, 3, 3))
 
 
 # ---------------------------------------------------------------------------

@@ -107,13 +107,17 @@ def test_cpu_step_never_launches_the_deconv_kernel(model_dirs, monkeypatch):
         assert out.shape == (1, 64, 64, 3)
 
 
-def spy_as_on_card(monkeypatch, calls):
-    """Route as on the card (bf16 deconv sites to the kernel) and count each
-    wrapper call under the plan's names; the deconv wrappers run their
-    plain versions (``deconv_t4_ref``), so no ``conv3x3`` twin call hides
-    inside them."""
+def as_on_card(monkeypatch):
+    """Route as on the card: bf16 deconv sites to the kernel."""
     monkeypatch.setattr(CV, "deconv_on_kernel",
                         lambda device, dtype: dtype == BF16)
+
+
+def spy_as_on_card(monkeypatch, calls):
+    """Route as on the card and count each wrapper call under the plan's
+    names; the deconv wrappers run their plain versions
+    (``deconv_t4_ref``), so no ``conv3x3`` twin call hides inside them."""
+    as_on_card(monkeypatch)
 
     def count(key):
         calls[key] = calls.get(key, 0) + 1
@@ -153,13 +157,14 @@ def test_plan_equals_dispatch_routed_as_on_the_card(model_dirs, monkeypatch,
     if mesh == "1x4":
         runner = S.ShardedRIFE(sess, S.make_mesh_2d(1, 4, [CPU] * 4),
                                height_axis="spatial")
+    as_on_card(monkeypatch)
+    want = runner.kernel_sites(128, 64) if mesh == "1x4" else \
+        plan.kernel_sites(sess, 128, 64)
     calls = {}
     spy_as_on_card(monkeypatch, calls)
     rng = np.random.default_rng(1)
     a, b = (rng.integers(0, 256, (1, 128, 64, 3), np.uint8) for _ in range(2))
     runner.process_batch(a, b, np.full(1, 0.5, np.float32))
-    want = runner.kernel_sites(128, 64) if mesh == "1x4" else \
-        plan.kernel_sites(sess, 128, 64)
     assert calls == want
     assert want.get("deconv4x4", 0) > 0
     assert (want.get("warp_spatial", 0) > 0) == (mesh == "1x4")

@@ -26,6 +26,7 @@ from rife_tpu_torch.models.v46_arch import write_flownet_param
 from rife_tpu_torch.ops import frame as tframe
 from rife_tpu_torch.ops import torch_ops
 from rife_tpu_torch.ops import warp as W
+from torch_jax_weights import weights_from_jax
 
 RNG = np.random.default_rng(21)
 ATOL = 1e-6
@@ -222,7 +223,7 @@ def test_weights_from_jax_equals_prepare_weights(mini_graph):
     tree = {k: {n: None if a is None else np.asarray(a)
                 for n, a in v.items()}
             for k, v in jax_ops.prepare_weights(g, raw).items()}
-    got = torch_ops.weights_from_jax(g, tree)
+    got = weights_from_jax(g, tree)
     want = torch_ops.prepare_weights(g, raw)
     assert got.keys() == want.keys() and len(want) == 44
     for name, entry in want.items():

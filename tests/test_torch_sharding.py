@@ -211,11 +211,11 @@ def test_kernel_sites_of_sharded_steps(model_dirs, monkeypatch, model, modes,
         sess, S.make_mesh_2d(n_data, n_sp, [CPU] * (n_data * n_sp)),
         height_axis="spatial" if n_sp > 1 else None,
         batch_axis="data")
+    want = sharded.kernel_sites(128, 64)
     calls = {}
     spy_wrappers(monkeypatch, calls)
     a, b = frames(2, 128, 64)
     sharded.process_batch(a, b, np.full(2, 0.5, np.float32))
-    want = sharded.kernel_sites(128, 64)
     assert calls == want
     if n_sp > 1:
         assert not {"warp_pair", "warp_ds4_pair", "warp_render",

@@ -192,13 +192,13 @@ def test_kernel_sites_match_dispatch(model_dirs, model, mode, fuse,
     tta, temporal = MODES[mode]
     sess = RIFE(str(model_dirs[model]), device="cpu", tta_mode=tta,
                 tta_temporal_mode=temporal, fuse_ds2=fuse)
+    h, w = 50, 70
+    want = plan.kernel_sites(sess, h, w)
     calls = {}
     _count_calls(monkeypatch, calls)
-    h, w = 50, 70
     rng = np.random.default_rng(9)
     a, b = (rng.integers(0, 256, (1, h, w, 3), np.uint8) for _ in range(2))
     sess.process_batch(a, b, np.full(1, 0.5, np.float32))
-    want = plan.kernel_sites(sess, h, w)
     assert calls == want
     runs = (2 if tta else 1) * (2 if temporal else 1)
     assert want.get("warp_ds2", 0) == (2 * runs if fuse else 0)

@@ -224,8 +224,8 @@ def test_uhd_conv_sites_follow_the_halved_flownet(model_dir, monkeypatch):
     monkeypatch.setattr(CV, "CONV_MIN_HW", 0)
     monkeypatch.setattr(CV, "DECONV_MIN_HW", 0)
     sess = RIFE(str(model_dir), device="cpu", uhd_mode=True)
-    planned = sorted((h, w) for _, (*_, h, w, _) in
-                     plan._plan(sess, *ALIGNED)[1])
+    planned = sorted((h, w) for (*_, h, w, _), n in
+                     plan.conv_site_counts(sess, *ALIGNED) for _ in range(n))
     seen = []
     real = CV.conv3x3
 

@@ -29,6 +29,7 @@ from rife_tpu.ops import common as JC
 from rife_tpu.ops import jax_ops
 from rife_tpu_torch.models.v1_arch import write_v1_params
 from rife_tpu_torch.ops import torch_ops
+from torch_jax_weights import weights_from_jax
 
 RNG = np.random.default_rng(91)
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
@@ -291,7 +292,7 @@ def test_weights_from_jax_equal_prepare_weights(tmp_path, variant):
         tree = jax_ops.prepare_weights(net.graph, net.weights)
         tree = {k: {n: None if a is None else np.asarray(a)
                     for n, a in e.items()} for k, e in tree.items()}
-        got = torch_ops.weights_from_jax(net.graph, tree)
+        got = weights_from_jax(net.graph, tree)
         want = torch_ops.prepare_weights(net.graph, net.weights)
         assert got.keys() == want.keys()
         for name, e in want.items():

@@ -128,18 +128,18 @@ def spy(monkeypatch, calls):
 @pytest.mark.parametrize("variant,mode", CASES)
 def test_kernel_sites_match_dispatch(model_dirs, variant, mode, sites,
                                      monkeypatch):
-    """``plan.kernel_sites`` (shapes + gates, nothing run) counts what one
+    """``plan.kernel_sites`` (the step on meta tensors) counts what one
     step hands the kernel wrappers: chip_smoke.py holds the card's launch
     counters to it.  The contextnet runs twice a geometry (frame 0 fed
     ``flow.0``, frame 1 ``flow.1``), four feature warps each."""
     if sites == "all":
         lower_gates(monkeypatch)
     sess = RIFE(str(model_dirs[variant]), device="cpu", **MODES[mode])
+    size = SIZES[1]
+    want = plan.kernel_sites(sess, *size)
     calls = {}
     spy(monkeypatch, calls)
-    size = SIZES[1]
     sess.process_batch(*frames(*size), HALF)
-    want = plan.kernel_sites(sess, *size)
     assert {k: v for k, v in calls.items() if v} == want
     geoms = 2 if MODES[mode].get("tta_mode") else 1
     feat = 8 * geoms if variant == "rife" and mode != "-u" else None

@@ -144,18 +144,19 @@ def _spy(monkeypatch, calls):
 
 @pytest.mark.parametrize("sites", ["gated", "all"])
 def test_kernel_sites_match_dispatch(model_dir, sites, monkeypatch):
-    """``plan.kernel_sites`` (shapes + gates, nothing run) counts what one
+    """``plan.kernel_sites`` (the step on meta tensors) counts what one
     step hands the kernel wrappers: chip_smoke.py holds the card's launch
     counters to it."""
     if sites == "all":
         lower_gates(monkeypatch)
     sess = RIFE(str(model_dir), device="cpu")
+    wants = {size: plan.kernel_sites(sess, *size) for size in SIZES}
     calls = {}
     _spy(monkeypatch, calls)
     for size in SIZES:
         calls.clear()
         sess.process_batch(*frames(*size), np.full(2, 0.5, np.float32))
-        want = plan.kernel_sites(sess, *size)
+        want = wants[size]
         assert calls == want
         assert want["warp_feat"] == 4 and want["warp_u8"] == 2
         assert (want.get("conv3x3", 0) > 0) == (sites == "all")

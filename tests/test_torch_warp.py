@@ -18,6 +18,8 @@ from jax.experimental.pallas import tpu as pltpu
 from rife_tpu.ops import jax_ops
 from rife_tpu.ops.warp_pallas import warp_pallas_pair
 from rife_tpu_torch.ops import warp as W
+from rife_tpu_torch.ops import launch as L
+from torch_other_device import elsewhere
 
 DTYPES = [(jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)]
 SHAPES = [(2, 40, 200), (1, 36, 132)]
@@ -143,14 +145,28 @@ def test_cpu_wrappers_take_twins_without_counting():
     assert all(v == 0 for v in W.LAUNCHES.values())
 
 
-def test_non_cpu_tensors_never_take_the_twins():
+def test_non_cpu_tensors_never_take_the_twins(monkeypatch):
     """Only a CPU tensor takes the plain twin; any other device goes to the
-    kernel path, which validates and raises rather than fall back."""
+    kernel path, which validates: a plan's meta tensors pass and launch
+    nothing, any other device raises rather than fall back."""
+    def twin(*args):
+        raise AssertionError("a twin ran off the CPU")
+
+    for name in ("warp_pair_ref", "warp_ds4_pair_ref", "warp_render_ref"):
+        monkeypatch.setattr(W, name, twin)
     meta = [torch.empty(1, c, 8, 8, device="meta") for c in (3, 2, 3, 2)]
     mask = torch.empty(1, 8, 8, device="meta")
-    for call in (lambda: W.warp_pair(*meta),
-                 lambda: W.warp_ds4_pair(*meta),
-                 lambda: W.warp_render(*meta, mask)):
+    with L.planning("cuda") as calls:
+        shapes = [tuple(W.warp_pair(*meta)[1].shape),
+                  tuple(W.warp_ds4_pair(*meta)[1].shape),
+                  tuple(W.warp_render(*meta, mask).shape)]
+    assert [name for name, _ in calls] == ["warp_pair", "warp_ds4_pair",
+                                           "warp_render"]
+    assert shapes == [(1, 3, 8, 8), (1, 3, 2, 2), (1, 8, 3, 8)]
+    other = [elsewhere(1, c, 8, 8) for c in (3, 2, 3, 2)]
+    for call in (lambda: W.warp_pair(*other),
+                 lambda: W.warp_ds4_pair(*other),
+                 lambda: W.warp_render(*other, elsewhere(1, 8, 8))):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
 

@@ -34,8 +34,10 @@ from rife_tpu_torch import RIFE
 from rife_tpu_torch.engine import plan
 from rife_tpu_torch.models.v23_arch import write_v23_params
 from rife_tpu_torch.models.v46_arch import write_flownet_param
+from rife_tpu_torch.ops import launch as L
 from rife_tpu_torch.ops import torch_ops
 from rife_tpu_torch.ops import warp as W
+from torch_other_device import elsewhere
 
 SHAPE = (2, 16, 256)
 DTYPES = {"f32": (jnp.float32, torch.float32),
@@ -126,11 +128,25 @@ def test_cpu_wrapper_takes_twin_without_counting():
     assert W.LAUNCHES["warp_ds2"] == 0
 
 
-def test_non_cpu_tensors_never_take_the_twin():
+def test_non_cpu_tensors_never_take_the_twin(monkeypatch):
+    """A meta tensor (a plan's) takes the kernel's branch: its checks, its
+    output and its count, and launches nothing; any other device raises
+    there rather than fall back."""
+    def twin(*args):
+        raise AssertionError("the twin ran on a meta tensor")
+
+    monkeypatch.setattr(W, "warp_ds2_ref", twin)
     img = torch.empty(1, 3, 8, 8, device="meta")
     flow = torch.empty(1, 2, 8, 8, device="meta")
+    with L.planning("cuda") as calls:
+        out = W.warp_ds2(img, flow)
+        with pytest.raises(ValueError, match="even H and W"):
+            W.warp_ds2(torch.empty(1, 3, 7, 8, device="meta"),
+                       torch.empty(1, 2, 7, 8, device="meta"))
+    assert calls == [("warp_ds2", None)]
+    assert out.device.type == "meta" and out.shape == (1, 3, 4, 4)
     with pytest.raises(ValueError, match="CUDA or CPU"):
-        W.warp_ds2(img, flow)
+        W.warp_ds2(elsewhere(1, 3, 8, 8), elsewhere(1, 2, 8, 8))
 
 
 class _Node:

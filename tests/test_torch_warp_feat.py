@@ -29,6 +29,8 @@ from rife_tpu.ops.warp_pallas import (
     _warp_pallas_u8_impl_any,
 )
 from rife_tpu_torch.ops import warp as W
+from rife_tpu_torch.ops import launch as L
+from torch_other_device import elsewhere
 
 KERNELS = {jnp.float32: _warp_pallas_impl, jnp.bfloat16: _warp_pallas_packed_impl}
 TORCH = {jnp.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
@@ -145,12 +147,21 @@ def test_cpu_single_wrappers_take_twins_without_counting():
 
 
 def test_single_wrappers_reject_other_devices():
-    meta = torch.empty(1, 4, 8, 8, device="meta")
-    flow = torch.empty(1, 2, 8, 8, device="meta")
-    for call in (lambda: W.warp_feat(meta, flow),
-                 lambda: W.warp_u8(meta[:, :3], flow)):
+    """A device neither the CPU, a card nor a plan's meta raises; meta
+    tensors pass the checks and launch nothing."""
+    img, flow = elsewhere(1, 4, 8, 8), elsewhere(1, 2, 8, 8)
+    for call in (lambda: W.warp_feat(img, flow),
+                 lambda: W.warp_u8(elsewhere(1, 3, 8, 8), flow)):
         with pytest.raises(ValueError, match="CUDA or CPU"):
             call()
+    meta = torch.empty(1, 4, 8, 8, device="meta")
+    flow = torch.empty(1, 2, 8, 8, device="meta")
+    with L.planning("cuda") as calls:
+        assert W.warp_feat(meta, flow).shape == (1, 4, 8, 8)
+        assert W.warp_u8(meta[:, :3].contiguous(), flow).shape == (1, 3, 8, 8)
+        with pytest.raises(ValueError, match="3 channels"):
+            W.warp_u8(meta, flow)
+    assert calls == [("warp_feat", None), ("warp_u8", None)]
 
 
 def test_ds4_twin_is_tap_grid_composition():
