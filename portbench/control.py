@@ -5,10 +5,11 @@
 For each seed, in one process: a run of the cell as the benchmark makes it
 (a short window of the cell's own load, ``--trace 0``), its sampled
 answers judged against the float32 reference, and the control judged on the
-same pairs: the reference itself with every convolution's operands rounded
-to float8 e4m3 (per-tensor scale), the precision below the configuration's
-bfloat16.  One JSON line a seed: ``program`` (the sound run's numbers) and
-``control``, each number of ``check.NUMBERS``.  The lower reading of a
+same pairs: the reference itself with every convolution's and
+InnerProduct's operands rounded to float8 e4m3 (per-tensor scale), the
+precision below the configuration's bfloat16.  One JSON line a seed:
+``program`` (the sound run's numbers) and ``control``, each number of
+``check.NUMBERS``.  The lower reading of a
 number is the largest ``program`` over the seeds, the upper the smallest
 ``control``.
 """

@@ -17,6 +17,12 @@ gives every node's shapes at the cell's frame size and batch.  From them:
 * the least time of each site on the card's published peaks, the larger of
   2 * MACs over the bf16 rate and bytes over the memory rate.
 
+Every other node is glue and no site: the v1 family's squeeze-excitation
+gates (``Pooling``, ``InnerProduct``, the gate's ``BinaryOp`` multiply)
+among them, so neither the conv roofline nor the step's FLOP counts them.
+A net's input shapes are its family's (``families/<family>.py``
+``net_inputs``).
+
 The counts never read the program's plan, so they stay the same whatever
 implements the work.
 """
@@ -30,7 +36,7 @@ from typing import Dict, List
 import torch
 
 from . import ncnn, peaks
-from .reference import graph
+from .reference import families, graph
 
 BF16 = 2
 
@@ -98,27 +104,6 @@ def _downscale_after(nodes, top) -> int:
     return int(round(1.0 / scale)) if scale < 1.0 else 1
 
 
-def _net_inputs(cfg: dict, net: str, b: int, h: int, w: int) -> Dict[str, tuple]:
-    """Input shapes of one net run, as the reference's pipelines feed it."""
-    hp, wp = _pad(h), _pad(w)
-    if cfg["family"] == "v4":
-        return {"in0": (b, 3, hp, wp), "in1": (b, 3, hp, wp),
-                "in2": (b, 1, hp, wp)}
-    half = (hp // 2, wp // 2)
-    if net == "flownet":
-        return {"input0": (b, 3, hp, wp), "input1": (b, 3, hp, wp)}
-    if net == "contextnet":  # once a frame
-        return {"input.1": (2 * b, 3, hp, wp), "flow.0": (2 * b, 2, *half)}
-    c = cfg["widths"][4]
-    ctx = {}
-    for k, (ch, div) in enumerate(((c, 4), (2 * c, 8), (4 * c, 16),
-                                   (8 * c, 32))):
-        for side in (0, 4):
-            ctx[str(3 + k + side)] = (b, ch, hp // div, wp // div)
-    return {"img0": (b, 3, hp, wp), "img1": (b, 3, hp, wp),
-            "flow": (b, 4, *half), **ctx}
-
-
 def count(cfg: dict, model_dir, b: int, h: int, w: int) -> Work:
     """The work of one step of the configuration's graphs in
     ``model_dir`` at batch ``b`` and frames of ``h`` x ``w``."""
@@ -136,8 +121,9 @@ def count(cfg: dict, model_dir, b: int, h: int, w: int) -> Work:
                 meta[n.name] = {"weight": None, "bias": None,
                                 "slope": torch.empty(int(n.p(0)),
                                                      device="meta")}
-        inputs = {k: torch.empty(s, device="meta")
-                  for k, s in _net_inputs(cfg, net, b, h, w).items()}
+        shapes = families.load(cfg["family"]).net_inputs(cfg, net, b,
+                                                         _pad(h), _pad(w))
+        inputs = {k: torch.empty(s, device="meta") for k, s in shapes.items()}
 
         def hook(node, xs, ys, nodes=nodes, frames=frames, net=net):
             if node.type in ("Convolution", "Deconvolution"):

@@ -8,11 +8,13 @@ a model without the program.  Format:
 * ``.param``: magic ``7767517``, ``layer_count blob_count``, then one line a
   layer: ``Type Name #bottoms #tops bottom... top... key=value...``; array
   params take negative ids (``-233xx``) and the value ``count,v0,v1,...``;
-* ``.bin``: per layer in file order, a Convolution/Deconvolution weight
-  preceded by a little-endian u32 flag (``0`` fp32, ``0x01306B47`` fp16,
-  padded to 4 bytes), then its f32 bias (``5=1``) with no flag; a PReLU's
-  f32 slopes with no flag.  Convolution weights are (out, in, k, k),
-  Deconvolution weights (in, out, k, k); ``in`` is ``6=`` / (out * k * k).
+* ``.bin``: per layer in file order, a Convolution/Deconvolution/
+  InnerProduct weight preceded by a little-endian u32 flag (``0`` fp32,
+  ``0x01306B47`` fp16, padded to 4 bytes), then its f32 bias (``5=1``; an
+  InnerProduct's ``1=1``) with no flag; a PReLU's f32 slopes with no flag.
+  Convolution weights are (out, in, k, k), Deconvolution weights
+  (in, out, k, k); ``in`` is ``6=`` / (out * k * k).  InnerProduct weights
+  are (out, in); ``out`` is ``0=``, ``in`` is ``2=`` / out.
 """
 
 from __future__ import annotations
@@ -102,8 +104,25 @@ class LayerWeights:
     slope: Optional[np.ndarray] = None
 
 
+def inner_shape(node: Node):
+    """(out, in) of an InnerProduct node."""
+    out_ch, size = int(node.p(0)), int(node.p(2))
+    if out_ch <= 0 or size % out_ch:
+        raise ValueError(f"{node.name}: weight size {size} not divisible")
+    return out_ch, size // out_ch
+
+
+def bias_size(node: Node) -> int:
+    """The number of f32 biases a weighted node stores after its weight."""
+    if node.type == "InnerProduct":
+        return inner_shape(node)[0] if int(node.p(1)) == 1 else 0
+    return conv_shape(node)[0] if int(node.p(5)) == 1 else 0
+
+
 def weight_shape(node: Node):
     """The stored shape of a weighted node's weight, or None."""
+    if node.type == "InnerProduct":
+        return inner_shape(node)
     if node.type not in ("Convolution", "Deconvolution"):
         return None
     out_ch, in_ch, k = conv_shape(node)
@@ -143,8 +162,7 @@ def read_bin(nodes: List[Node], path: Union[str, Path]) -> Dict[str, LayerWeight
         shape = weight_shape(node)
         if shape is not None:
             w = r.flagged(int(np.prod(shape))).reshape(shape)
-            b = r.raw(shape[0] if node.type == "Convolution" else shape[1]) \
-                if int(node.p(5)) == 1 else None
+            b = r.raw(bias_size(node)) if bias_size(node) else None
             out[node.name] = LayerWeights(weight=w, bias=b)
         elif node.type == "PReLU":
             out[node.name] = LayerWeights(slope=r.raw(int(node.p(0))))
@@ -164,7 +182,7 @@ def bin_bytes(nodes: List[Node], weights: Dict[str, LayerWeights]) -> bytes:
             pad = (-w.nbytes) % 4
             parts += [np.uint32(FLAG_FP16).astype("<u4").tobytes(),
                       w.tobytes(), b"\0" * pad]
-            if int(node.p(5)) == 1:
+            if bias_size(node):
                 parts.append(np.ascontiguousarray(lw.bias, "<f4").tobytes())
         elif node.type == "PReLU":
             parts.append(np.ascontiguousarray(lw.slope, "<f4").tobytes())

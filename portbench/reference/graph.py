@@ -12,12 +12,23 @@ Semantics, layer by layer (the ncnn definitions the model format fixes):
 * ``rife.Warp``: backward bilinear warp of the image at (x + u, y + v),
   corners clamped to the border;
 * ``Crop`` / ``Slice`` on the channel axis, ``Concat`` on channels,
-  ``BinaryOp`` (with a scalar when ``1=1``), ``Eltwise`` weighted sums,
-  ``PixelShuffle``, ``Sigmoid``, ``PReLU``, ``Clip``.
+  ``BinaryOp`` (with a scalar when ``1=1``; a (B,C) operand broadcast over
+  a (B,C,H,W) one, one value a channel), ``Eltwise`` weighted sums,
+  ``PixelShuffle``, ``Sigmoid``, ``PReLU``, ``Clip``;
+* the v1 family's squeeze-excitation gates: ``Pooling`` ``0=1 4=1`` (the
+  global average, (B,C,H,W) -> (B,C)), ``InnerProduct`` (``F.linear`` with
+  the stored (out, in) weight, bias when ``1=1``, then the fused activation
+  ``9=``: 0 none, 4 sigmoid) and ``UnaryOp`` ``0=1`` (negation).
+
+A parameter these graphs do not use raises.  A node whose outputs are all
+given as inputs is not run (ncnn's extractor computes a blob only where it
+is not given: the v1 contextnet's frame-0 run feeds ``flow.0``, the
+negation's output).
 
 ``quant`` (the control's storage precision) rounds the graph's inputs, every
-node's outputs and every convolution's weights.  ``hook(node, inputs, outputs)`` sees every node (the work
-counts run the interpreter on the meta device with one).
+node's outputs and every convolution's and InnerProduct's weights.
+``hook(node, inputs, outputs)`` sees every node (the work counts run the
+interpreter on the meta device with one).
 """
 
 from __future__ import annotations
@@ -84,6 +95,39 @@ def _conv(node: Node, x, p, quant: Quant):
     return _act(node, y)
 
 
+def _params(node: Node, allowed: Dict[int, tuple], required=()) -> None:
+    """Raise unless every parameter of ``node`` is one of ``allowed``'s
+    keys with one of its values (an empty tuple: any value), and each key
+    of ``required`` is given."""
+    for key in required:
+        if key not in node.params:
+            raise NotImplementedError(f"{node.name}: {node.type} without "
+                                      f"parameter {key}")
+    for key, value in node.params.items():
+        if key not in allowed or (allowed[key] and value not in allowed[key]):
+            raise NotImplementedError(f"{node.name}: {node.type} "
+                                      f"parameter {key}={value!r}")
+
+
+def _inner(node: Node, x, p, quant: Quant):
+    _params(node, {0: (), 1: (0, 1), 2: (), 9: (0, 4)}, required=(0, 2))
+    w = p["weight"] if quant is None else quant(p["weight"])
+    y = F.linear(x.flatten(1), w, p["bias"])
+    return torch.sigmoid(y) if int(node.p(9, 0)) == 4 else y
+
+
+def _broadcast(a, b):
+    """A (B,C) operand as (B,C,1,1) beside a (B,C,H,W) one."""
+    if a.dim() == 2 and b.dim() == 4:
+        if a.shape != b.shape[:2]:
+            raise ValueError(f"BinaryOp: {tuple(a.shape)} against "
+                             f"{tuple(b.shape)}")
+        return a[:, :, None, None], b
+    if b.dim() == 2 and a.dim() == 4:
+        b, a = _broadcast(b, a)
+    return a, b
+
+
 def _channels(node: Node, x, starts, ends):
     return x[:, int(starts[0]):int(ends[0])]
 
@@ -128,7 +172,7 @@ def _node(node: Node, xs: List[torch.Tensor], p, quant: Quant):
         op = _BINARY[int(node.p(0, 0))]
         if int(node.p(1, 0)) == 1:
             return [op(xs[0], float(node.p(2, 0.0)))]
-        return [op(xs[0], xs[1])]
+        return [op(*_broadcast(xs[0], xs[1]))]
     if t == "Eltwise":
         if int(node.p(0, 0)) != 1:
             raise NotImplementedError(f"{node.name}: eltwise op")
@@ -143,6 +187,14 @@ def _node(node: Node, xs: List[torch.Tensor], p, quant: Quant):
         return [torch.sigmoid(xs[0])]
     if t == "PReLU":
         return [F.prelu(xs[0], p["slope"])]
+    if t == "Pooling":
+        _params(node, {0: (1,), 4: (1,)}, required=(0, 4))
+        return [xs[0].mean(dim=(2, 3))]
+    if t == "InnerProduct":
+        return [_inner(node, xs[0], p, quant)]
+    if t == "UnaryOp":
+        _params(node, {0: (1,)}, required=(0,))
+        return [-xs[0]]
     if t == "Clip":
         return [xs[0].clamp(float(node.p(0)), float(node.p(1)))]
     raise NotImplementedError(f"layer kind {t} ({node.name})")
@@ -159,7 +211,7 @@ def run(nodes: List[Node], weights: Dict[str, dict],
             last_use[b] = i
     blobs = {k: v if quant is None else quant(v) for k, v in inputs.items()}
     for i, node in enumerate(nodes):
-        if node.type == "Input":
+        if node.type == "Input" or all(t in inputs for t in node.tops):
             continue
         xs = [blobs[b] for b in node.bottoms]
         ys = _node(node, xs, weights.get(node.name), quant)

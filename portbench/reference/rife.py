@@ -2,24 +2,20 @@
 
 * pre: u8 -> float32 / 255, (B,3,H,W), zero-padded bottom and right to
   multiples of 32;
-* v4 family (one net): ``out0`` of the flownet on ``in0``, ``in1`` and the
-  constant timestep plane ``in2``;
-* v2 family (three nets, midpoint only): the flownet's half-resolution flow
-  (4 channels: frame 0's flow, then frame 1's), the contextnet once a frame
-  with that frame's flow as ``flow.0``, and the fusionnet on the frames, the
-  flow and the features as inputs ``"3".."10"`` (frame 0's f1..f4, then
-  frame 1's);
+* the family's pipeline (``families/<family>.py``, found by the
+  configuration's ``family``): its nets on the padded frames;
 * post: crop the pad, floor(v * 255 + 0.5) saturated to u8, (B,H,W,3).
 
-``Reference.pair`` also returns the flownet's flow tap (v4: ``flow3``, the
-last block's; v2: ``flow``, at half resolution), the tap whose std the
-weights' calibration sets, so that a run states its fixtures' flow.
+``Reference.pair`` also returns the flownet's flow tap (the family's
+``TAP``), the tap whose std the weights' calibration sets, so that a run
+states its fixtures' flow.
 
 The control: ``quant=fp8_e4m3`` stores the whole reference in float8 e4m3,
 the precision below the configurations' bfloat16, as the program stores its
 activations in bfloat16: the frames, every node's output and every
 convolution's weights are rounded (a per-tensor scale), and every
-operation computes in float32 on the rounded values.
+operation computes in float32 on the rounded values (InnerProduct weights
+are rounded as convolution weights are).
 """
 
 from __future__ import annotations
@@ -32,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import ncnn
-from . import graph
+from . import families, graph
 
 PAD = 32
 
@@ -83,12 +79,14 @@ def postprocess(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 class Reference:
     """One model directory's nets, read from its ``.param`` and ``.bin``
     files, on ``device`` in float32 (``quant``: the control's rounding of
-    every convolution's operands)."""
+    every convolution's operands; ``hook``: ``graph.run``'s, on every node
+    of every net)."""
 
     def __init__(self, model_dir, family: str, nets, device,
-                 quant: Optional[graph.Quant] = None):
+                 quant: Optional[graph.Quant] = None, hook=None):
         self.family, self.device, self.quant = family, device, quant
-        self.model_dir = model_dir
+        self.pipeline = families.load(family)
+        self.model_dir, self.hook = model_dir, hook
         self.nets: Dict[str, Tuple[list, dict]] = {}
         for net in nets:
             nodes = ncnn.parse_param(Path(model_dir) / f"{net}.param")
@@ -97,33 +95,20 @@ class Reference:
 
     def _run(self, net, inputs, outputs):
         nodes, w = self.nets[net]
-        return graph.run(nodes, w, inputs, outputs, self.quant)
+        return graph.run(nodes, w, inputs, outputs, self.quant, self.hook)
+
+    @torch.no_grad()
+    def forward(self, i0: torch.Tensor, i1: torch.Tensor, t: float):
+        """Preprocessed frames -> (the float output, padded; the flow
+        tap)."""
+        with no_tf32():
+            return self.pipeline.pair(self._run, i0, i1, t)
 
     @torch.no_grad()
     def pair(self, in0: torch.Tensor, in1: torch.Tensor, t: float):
-        """(B,H,W,3) u8 pairs -> ((B,H,W,3) u8 frames, the (B,4,H',W')
-        flow tap)."""
+        """(B,H,W,3) u8 pairs -> ((B,H,W,3) u8 frames, the flow tap)."""
         h, w = in0.shape[1], in0.shape[2]
         with no_tf32():
-            i0 = preprocess(in0.to(self.device))
-            i1 = preprocess(in1.to(self.device))
-            if self.family == "v4":
-                tp = torch.full_like(i0[:, :1], float(t))
-                out, flow = self._run("flownet", {"in0": i0, "in1": i1,
-                                                  "in2": tp},
-                                      ["out0", "flow3"])
-                return postprocess(out.float(), h, w), flow[:, :4]
-            if t != 0.5:
-                raise ValueError("the v2 family interpolates the midpoint")
-            flow, = self._run("flownet", {"input0": i0, "input1": i1},
-                              ["flow"])
-            feats = ["f1", "f2", "f3", "f4"]
-            c0 = self._run("contextnet", {"input.1": i0,
-                                          "flow.0": flow[:, 0:2]}, feats)
-            c1 = self._run("contextnet", {"input.1": i1,
-                                          "flow.0": flow[:, 2:4]}, feats)
-            inputs = {"img0": i0, "img1": i1, "flow": flow}
-            for k, f in enumerate(c0 + c1):
-                inputs[str(3 + k)] = f
-            out, = self._run("fusionnet", inputs, ["output"])
+            out, flow = self.forward(preprocess(in0.to(self.device)),
+                                     preprocess(in1.to(self.device)), t)
             return postprocess(out.float(), h, w), flow

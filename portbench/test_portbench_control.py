@@ -10,9 +10,9 @@ import pytest
 import torch
 
 from portbench import check, control, harness, scene, weights
-from portbench.testing import bench
+from portbench.testing import bench_and_pair
 
-CELLS = [c["name"] for c in bench()["workloads"]]
+CELLS = [c["name"] for c in bench_and_pair()["workloads"]]
 
 
 def _control_numbers(cell, seed, h, w, device, pairs, root):

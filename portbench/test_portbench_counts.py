@@ -82,3 +82,25 @@ def test_frame_blobs_trace_copies():
     frames = counts._frame_blobs(nodes, ["input0", "input1"])
     assert "cat_in" in frames and "Slice_img0_0" in frames
     assert "flowx2_0_up" not in frames
+
+
+def test_v1_gates_are_glue(tmp_path):
+    """The v1 graphs at 1080p: the squeeze-excitation gates (Pooling,
+    InnerProduct, the gate's multiply) are no site; the convolutions,
+    deconvolutions and warps are counted as for the other families."""
+    from portbench.models import v1_arch
+    from portbench.testing import V1_ARCH
+
+    md = v1_arch.write_v1_params(tmp_path, tuple(V1_ARCH["widths"]))
+    w = counts.count(V1_ARCH, md, 1, 1080, 1920)
+    assert (len(w.of("conv")), len(w.of("deconv")), len(w.of("warp"))) \
+        == (67, 3, 10)
+    assert not [s for s in w.sites
+                if s.name.endswith(("_fc1", "_fc2", "_pool", "_scale"))]
+    assert w.flop_per_frame == pytest.approx(675.306e9, rel=1e-5)
+    px = 1088 * 1920
+    # block 1's entry warp of a frame copy, read by a 1/4 downscale
+    assert _site(w, "warp0_0").bytes == pytest.approx(
+        (3 * px + 4 * px) / 4 + 6 * px / 16)
+    # the fusionnet's warp of img0: u8 source, full resolution
+    assert _site(w, "warp_img0").bytes == 3 * px + 2 * 2 * px + 2 * 3 * px

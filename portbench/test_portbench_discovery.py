@@ -2,15 +2,20 @@
 by name, and a new one of each is a new file alone."""
 
 import json
+import os
 import shutil
+import subprocess
 import sys
 
 import pytest
 
 from portbench import harness, trace
-from portbench.testing import ROOT, bench
+from portbench.testing import (MINI_WIDTHS, ROOT, V1_ARCH, bench,
+                               bench_and_pair)
 
 B = bench()
+# with the pair cell, which BENCHMARK.json no longer lists (testing.py)
+ALL = bench_and_pair()
 CONTRACT_KEYS = {"command", "paths", "run_seconds", "configs", "workloads",
                  "end_to_end", "per_layer"}
 
@@ -26,18 +31,18 @@ def test_benchmark_json_shape():
     assert len((ROOT / "BENCHMARK.json").read_bytes()) < 64 * 1024
 
 
-@pytest.mark.parametrize("cell", [c["name"] for c in B["workloads"]])
+@pytest.mark.parametrize("cell", [c["name"] for c in ALL["workloads"]])
 def test_cell_files(cell):
-    entry = next(c for c in B["workloads"] if c["name"] == cell)
+    entry = next(c for c in ALL["workloads"] if c["name"] == cell)
     wl = harness.workload(cell)
     assert wl["config"] == entry["config"] and wl["traffic"] == entry["traffic"]
     assert wl["why"] == entry["why"] and len(wl["why"]) <= 200
     cfg = harness.config(wl["config"])
     assert cfg["name"] == wl["config"]
     assert harness.traffic_module(wl["traffic"]).run
-    reported = {m["name"] for m in harness.selected(B, cell, False)}
+    reported = {m["name"] for m in harness.selected(ALL, cell, False)}
     assert "setup_s" in reported and len(reported) >= 2
-    per_layer = harness.selected(B, cell, True)
+    per_layer = harness.selected(ALL, cell, True)
     assert per_layer
     for m in per_layer:
         assert m["moves"] in reported
@@ -55,9 +60,9 @@ def test_config_files(cfg):
     assert data["dtype"] == "bfloat16"
 
 
-@pytest.mark.parametrize("metric", [m["name"] for m in B["per_layer"]])
+@pytest.mark.parametrize("metric", [m["name"] for m in ALL["per_layer"]])
 def test_metric_readers(metric):
-    m = next(x for x in B["per_layer"] if x["name"] == metric)
+    m = next(x for x in ALL["per_layer"] if x["name"] == metric)
     mod = harness.metric_reader(metric)
     assert (mod.LAYER, mod.UNIT, mod.MOVES) == (m["layer"], m["unit"],
                                                 m["moves"])
@@ -82,7 +87,8 @@ def test_new_files_alone_add_a_config_cell_metric_and_family(tmp_path,
                                                              monkeypatch):
     """A throwaway configuration, cell, per-layer metric and kernel family,
     added as files to a copy of the benchmark, are found with no edit of a
-    file that was there."""
+    file that was there; so are a v1 configuration and its cell, which run
+    through the harness in the copy on the CPU, and a pipeline family."""
     pkg = tmp_path / "portbench"
     shutil.copytree(harness.PKG, pkg, ignore=shutil.ignore_patterns(
         "_work", "__pycache__"))
@@ -99,17 +105,17 @@ def test_new_files_alone_add_a_config_cell_metric_and_family(tmp_path,
         '    return c["calls"] / c["window_s"]\n')
     (pkg / "kernels" / "zz_fused.json").write_text(json.dumps(
         {"kind": "fused", "patterns": ["fused_glue_kernel"]}))
-    bench = dict(B)
-    bench["workloads"] = B["workloads"] + [{
+    bench = dict(ALL)
+    bench["workloads"] = ALL["workloads"] + [{
         "name": "tiny-pair", "config": "tiny-v4", "traffic": "pair",
         "chips": 1, "why": "a throwaway cell"}]
-    bench["per_layer"] = B["per_layer"] + [{
+    bench["per_layer"] = ALL["per_layer"] + [{
         "name": "calls_per_s.pair", "unit": "calls/s", "better": "higher",
         "source": "host_clock", "layer": "engine/session.py",
         "moves": "latency_p50_ms", "workloads": ["tiny-pair"]}]
     bench["end_to_end"] = [dict(m, workloads=m["workloads"] + ["tiny-pair"])
                            if m["name"].startswith("latency") else m
-                           for m in B["end_to_end"]]
+                           for m in ALL["end_to_end"]]
     assert harness.workload("tiny-pair", pkg)["config"] == "tiny-v4"
     assert harness.config("tiny-v4", pkg)["widths"] == [8, 8, 8, 8]
     names = [m["name"] for m in harness.selected(bench, "tiny-pair", True)]
@@ -122,6 +128,56 @@ def test_new_files_alone_add_a_config_cell_metric_and_family(tmp_path,
     fams = trace.families(pkg / "kernels")
     assert trace.kind_of("fused_glue_kernel<1>", fams) == "fused"
     assert sys.modules  # the copy imported nothing new by name
+
+    # v1: a configuration and a cell as files, and a pipeline family (here
+    # v1's again under another name) as one more
+    (pkg / "configs" / "v1_arch.json").write_text(json.dumps(dict(
+        V1_ARCH, widths=MINI_WIDTHS["v1_arch"], dtype="float32")))
+    wl = harness.workload("v46-1080p-b8-device", pkg)
+    wl.update(config="v1_arch", why="a throwaway v1 cell", height=64,
+              width=96, frames=5, batch=2, warmup_steps=2, sample_steps=8)
+    (pkg / "workloads" / "v1-tiny.json").write_text(json.dumps(wl))
+    (pkg / "reference" / "families" / "v1copy.py").write_text(
+        "from .v1 import *  # noqa: F401,F403\n")
+    v1 = dict(B, workloads=B["workloads"] + [{
+        "name": "v1-tiny", "config": "v1_arch", "traffic": "device_batch",
+        "chips": 1, "why": "a throwaway v1 cell"}])
+    v1["end_to_end"] = [dict(m, workloads=m["workloads"] + ["v1-tiny"])
+                        if m["name"] == "frames_per_s" else m
+                        for m in B["end_to_end"]]
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(v1))
+    code = f"""
+import json, time
+from pathlib import Path
+import numpy as np
+from portbench import harness
+from portbench.reference import families
+from portbench.reference.rife import Reference
+assert harness.PKG == Path({str(pkg)!r}), harness.PKG
+assert families.load("v1copy").TAP == families.load("v1").TAP
+cell = harness.Cell("v1-tiny", 2 ** 40 + 9, 0.5, False, "cpu",
+                    time.perf_counter())
+r = harness.run_cell(cell, json.loads(Path("BENCHMARK.json").read_text()),
+                     Path("work"))
+ref = Reference(r.model_dir, cell.cfg["family"], cell.cfg["nets"], "cpu")
+d = np.concatenate([np.abs(np.asarray(f, np.int16) - ref.pair(
+    r.clip[p:p + 1], r.clip[p + 1:p + 2], 0.5)[0][0].numpy().astype(
+    np.int16)).ravel() for p, f in r.sample])
+print(json.dumps({{"correct": r.result["correct"],
+                  "metrics": sorted(r.result["metrics"]),
+                  "pairs": len({{p for p, _ in r.sample}}),
+                  "max": int(d.max()), "equal": float((d == 0).mean())}}))
+"""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(tmp_path), str(ROOT)]))
+    proc = subprocess.run([sys.executable, "-c", code], cwd=tmp_path,
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["correct"] is True and got["pairs"] >= 2
+    assert got["metrics"] == ["frames_per_s", "setup_s"]
+    assert got["max"] <= 1 and got["equal"] >= 0.999
 
 
 class _Ev:

@@ -70,3 +70,45 @@ def test_fp16_flag_layout():
     assert int(np.frombuffer(raw[:4], "<u4")[0]) == ncnn.FLAG_FP16
     assert len(raw) % 4 == 0
     assert torch.is_tensor(torch.as_tensor(w["block0_conv0"].weight))
+
+
+def test_inner_product_bin_round_trip(tmp_path):
+    """InnerProduct weights in the zoo's fp16-flagged format, with and
+    without a bias, read back by the benchmark and by the program."""
+    from rife_tpu_torch.graph.param import parse_param
+    from rife_tpu_torch.graph.weights import load_bin
+
+    text = ("7767517\n4 4\nInput x 0 1 x\n"
+            "InnerProduct fc1 1 1 x a 0=3 1=1 2=15\n"
+            "PReLU p 1 1 a b 0=1\n"
+            "InnerProduct fc2 1 1 b c 0=5 1=0 2=15 9=4\n")
+    nodes = ncnn.parse_param_text(text)
+    assert ncnn.weight_shape(nodes[1]) == (3, 5)
+    assert ncnn.bias_size(nodes[1]) == 3 and ncnn.bias_size(nodes[3]) == 0
+    w = weights.layer_weights(nodes, weights.draw(nodes, 4, "cpu"), 1.0)
+    w["fc1"].bias = np.arange(3, dtype=np.float32)
+    (tmp_path / "n.param").write_text(text)
+    (tmp_path / "n.bin").write_bytes(ncnn.bin_bytes(nodes, w))
+    mine = ncnn.read_bin(nodes, tmp_path / "n.bin")
+    theirs = load_bin(parse_param(tmp_path / "n.param"), tmp_path / "n.bin")
+    for name in ("fc1", "fc2"):
+        np.testing.assert_array_equal(mine[name].weight, w[name].weight)
+        np.testing.assert_array_equal(theirs[name].weight, w[name].weight)
+    np.testing.assert_array_equal(mine["fc1"].bias, [0, 1, 2])
+    np.testing.assert_array_equal(theirs["fc1"].bias, [0, 1, 2])
+    assert mine["fc2"].bias is None and mine["p"].slope.tolist() == [0.25]
+
+
+def test_inner_product_draw_leaves_other_bytes():
+    """The gates' weights come from a stream of their own, drawn after the
+    convolutions': a graph's convolutions draw the same with or without
+    them."""
+    conv = "Convolution c 1 1 x y 0=4 1=3 4=1 5=0 6=108\n"
+    plain = ncnn.parse_param_text("7767517\n2 2\nInput x 0 1 x\n" + conv)
+    gated = ncnn.parse_param_text(
+        "7767517\n4 4\nInput x 0 1 x\n" + conv
+        + "Pooling p 1 1 y z 0=1 4=1\n"
+        "InnerProduct fc 1 1 z g 0=4 1=0 2=16 9=4\n")
+    a, b = weights.draw(plain, 8, "cpu"), weights.draw(gated, 8, "cpu")
+    assert torch.equal(a["c"], b["c"]) and set(b) == {"c", "fc"}
+    assert b["fc"].shape == (4, 4)

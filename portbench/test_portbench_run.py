@@ -27,8 +27,8 @@ def test_result_line(tmp_path, cell, traced):
     assert set(result["checks"]) == set(c.wl["limits"])
     for v, lim in checks.values():
         assert v <= lim
-    expect = {m["name"] for m in harness.selected(testing.bench(), cell,
-                                                  traced)}
+    expect = {m["name"] for m in harness.selected(testing.bench_and_pair(),
+                                                  cell, traced)}
     if traced:
         # no device on the CPU: only the host's counters have a reading
         assert set(result["metrics"]) <= expect
@@ -48,7 +48,7 @@ def test_result_line(tmp_path, cell, traced):
 def test_no_card_no_result(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.chdir(testing.ROOT)
-    rc = run.main(["--workload", "v46-1080p-b1-pair", "--seed", "1",
+    rc = run.main(["--workload", "v46-1080p-b8-host", "--seed", "1",
                    "--seconds", "1", "--trace", "0"])
     out = capsys.readouterr()
     assert rc != 0 and out.out == ""
